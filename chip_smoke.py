@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's main path on one CUDA card.
+
+Run from the repo root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the three CUDA kernels from `optical_flow_tpu_torch/csrc/`,
+holds each against its plain PyTorch version at the shapes of the 1080p
+B=16 main path, then drives `magnitude_sums` / `calc_flow_batched` at
+1080x1920 and at the extractor's 72x129, checks the flow against the
+plain path on the card, against the true shift and against the JAX
+package's golden numbers (`tests/data/torch_port_golden.json`), and times
+both paths.  One JSON line per phase; then the card's nvidia-smi line,
+the kernels summary and, last, {"ok": true, "device": {...}}.  Any failed
+check raises: the script then exits non-zero and prints no result.  It
+refuses to run without a CUDA card.  It imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
+SHIFT = (2, 3)            # (dy, dx) of smooth_texture_pair: true flow (-3, -2)
+TRUE_FLOW = (-3.0, -2.0)
+BATCH = 16
+CROP = 32
+WARMUP, TIMED = 3, 10
+KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3)}
+KERNEL_INFO = {
+    "K3": ("gauss_resize", "optical_flow_tpu_torch/csrc/gauss_resize.cu",
+           "optical_flow_tpu/pallas/gauss_resize.py:345"),
+    "K2": ("polyexp", "optical_flow_tpu_torch/csrc/polyexp.cu",
+           "optical_flow_tpu/pallas/polyexp.py:645"),
+    "K1": ("update_blur", "optical_flow_tpu_torch/csrc/update_blur.cu",
+           "optical_flow_tpu/pallas/update_gather.py:956"),
+}
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def errors(got, ref):
+    """(max abs error, max relative error) of got against ref."""
+    d = (got - ref).abs()
+    return float(d.max()), float((d / ref.abs().clamp_min(1e-30)).max())
+
+
+def require_close(name: str, got, ref, atol: float, rtol: float) -> None:
+    bad = int(((got - ref).abs() > atol + rtol * ref.abs()).sum())
+    require(bad == 0, f"{name}: {bad} values outside atol={atol} rtol={rtol}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn over `reps` back-to-back runs, after one
+    warm-up run (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def frames(h: int, w: int, dev):
+    import torch
+    from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
+    f1, f2 = smooth_texture_pair(h, w, SHIFT)
+    prev = torch.as_tensor(np.broadcast_to(f1, (BATCH, h, w)).copy()).to(dev)
+    nxt = torch.as_tensor(np.broadcast_to(f2, (BATCH, h, w)).copy()).to(dev)
+    return prev, nxt
+
+
+def kernel_phases(prev, nxt, cfg, stats) -> None:
+    """Each kernel against its plain version at the 1080p B=16 shapes."""
+    import torch
+    from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
+    from optical_flow_tpu_torch.kernels.polyexp import poly_exp
+    from optical_flow_tpu_torch.kernels.update_gather import update_blur
+    from optical_flow_tpu_torch.models.farneback import core
+    from optical_flow_tpu_torch.models.farneback.params import (build_plan,
+                                                                gaussian_kernel)
+    both = torch.cat([prev, nxt])
+    plan = build_plan(prev.shape[1], prev.shape[2], cfg)
+    imgs = {}
+
+    def run(kid, cases):
+        atol, rtol = KERNEL_TOL[kid]
+        levels, ms, plain_ms, max_abs = [], 0.0, 0.0, 0.0
+        for label, kern_fn, plain_fn in cases:
+            got, ref = kern_fn(), plain_fn()
+            torch.cuda.synchronize()
+            require_close(f"{kid} {label}", got, ref, atol, rtol)
+            ea, er = errors(got, ref)
+            t_k, t_p = cuda_ms(kern_fn, 10), cuda_ms(plain_fn, 3)
+            levels.append({"level": label, "shape": list(got.shape),
+                           "max_abs_err": ea, "max_rel_err": er,
+                           "ms": t_k, "plain_ms": t_p})
+            ms, plain_ms, max_abs = ms + t_k, plain_ms + t_p, max(max_abs, ea)
+            del got, ref
+        stats[kid] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs}
+        emit(f"kernel_{kid}", name=KERNEL_INFO[kid][0], atol=atol, rtol=rtol,
+             levels=levels, ms_sum=ms, plain_ms_sum=plain_ms)
+
+    k3 = []
+    for lv in plan.levels:
+        if lv.k == 0:
+            continue
+        kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
+        imgs[lv.k] = gauss_resize(both, kern, lv.width, lv.height)
+        k3.append((f"L{lv.k}",
+                   lambda kern=kern, lv=lv: gauss_resize(both, kern, lv.width, lv.height),
+                   lambda kern=kern, lv=lv: core.gaussian_blur_resize(both, kern, lv.width, lv.height)))
+    run("K3", k3)
+
+    Rs = {}
+    k2 = []
+    for lv in plan.levels:
+        if lv.k == 0:
+            src, pre = both, gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
+        else:
+            src, pre = imgs[lv.k], None
+        Rs[lv.k] = poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
+        k2.append((f"L{lv.k}",
+                   lambda src=src, pre=pre: poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre),
+                   lambda src=src, pre=pre: core.poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)))
+    run("K2", k2)
+    del imgs
+
+    gen = torch.Generator(device=both.device).manual_seed(0)
+    k1 = []
+    for lv in plan.levels:
+        R = Rs[lv.k]
+        B = R.shape[0] // 2
+        # displacements up to 6 px: many fetches leave the image near the
+        # borders and the gather is far from the identity
+        flow = (torch.rand((B, 2, lv.height, lv.width), generator=gen,
+                           device=both.device) - 0.5) * 12.0
+        k1.append((f"L{lv.k}",
+                   lambda R=R, B=B, flow=flow: update_blur(R[:B], R[B:], flow, cfg.winsize),
+                   lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow, cfg.winsize)))
+    run("K1", k1)
+
+
+def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None):
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
+    from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
+
+    prev, nxt = frames(h, w, dev)
+    n_levels = len(build_plan(h, w, cfg).levels)
+    expected = {"K3": n_levels - 1, "K2": n_levels,
+                "K1": n_levels * cfg.iterations}
+    reset_launches()
+    sums = magnitude_sums(prev, nxt, cfg)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for kid in ("K1", "K2", "K3"):
+        require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
+    require(launches == expected, f"{name}: launches {launches} != {expected}")
+    if stats is not None:
+        for kid in stats:
+            stats[kid]["launches"] = launches[kid]
+
+    flow = calc_flow_batched(prev, nxt, cfg)
+    flow_p = calc_flow_batched(prev, nxt, cfg, plain=True)
+    torch.cuda.synchronize()
+    require(tuple(flow.shape) == (BATCH, h, w, 2), f"{name}: flow shape {tuple(flow.shape)}")
+    require(bool(torch.isfinite(flow).all()), f"{name}: non-finite flow")
+    d = (flow - flow_p).abs()
+    share = float((d <= 2e-3 + 1e-3 * flow_p.abs()).float().mean())
+    mean_d = float(d.mean())
+    require(share >= 0.999, f"{name}: only {share:.6f} of components match the plain path")
+    require(mean_d <= 1e-3, f"{name}: mean |kernel - plain| {mean_d} > 1e-3 px")
+
+    fields = {"launches": launches, "vs_plain": {
+        "share_within_tol": share, "mean_abs_diff": mean_d,
+        "max_abs_diff": float(d.max())}}
+    del d, flow_p
+    if h > 2 * CROP and w > 2 * CROP:
+        inner = flow[:, CROP:h - CROP, CROP:w - CROP]
+        truth = torch.tensor(TRUE_FLOW, device=dev)
+        epe = float((inner - truth).norm(dim=-1).mean())
+        fields["interior_epe_px"] = epe
+        if name == "e2e_1080p":
+            require(epe <= 0.5, f"{name}: interior EPE {epe} > 0.5 px")
+
+    g = golden[f"{h}x{w}"]
+    sums_h = sums.double().cpu().numpy()
+    rel = np.abs(sums_h - g["mag_sum"]) / abs(g["mag_sum"])
+    require(bool((rel <= 1e-4).all()), f"{name}: magnitude sums off by {rel.max()} rel")
+    ys = torch.as_tensor(g["sample_y"], device=dev)
+    xs = torch.as_tensor(g["sample_x"], device=dev)
+    samples = flow[:, ys, xs].cpu().numpy()
+    ref = np.asarray(g["sample_flow"], dtype=np.float32)
+    within = float((np.abs(samples - ref[None]) <= 2e-3).mean())
+    require(within >= 0.99, f"{name}: only {within:.4f} of golden samples within 2e-3 px")
+    fields["vs_jax_golden"] = {"mag_sum_max_rel_err": float(rel.max()),
+                               "samples_within_2e-3": within}
+    del flow
+
+    def pairs_per_s(plain: bool) -> float:
+        for _ in range(WARMUP):
+            magnitude_sums(prev, nxt, cfg, plain=plain)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TIMED):
+            t0 = time.perf_counter()
+            magnitude_sums(prev, nxt, cfg, plain=plain)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return BATCH / float(np.median(times))
+
+    fields["pairs_per_s"] = pairs_per_s(False)
+    fields["plain_pairs_per_s"] = pairs_per_s(True)
+    fields["card"] = power
+    emit(name, h=h, w=w, batch=BATCH, **fields)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script runs only on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from optical_flow_tpu_torch.kernels import _build
+    from optical_flow_tpu_torch.utils.config import FarnebackConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    power = nvidia_smi_line()
+    build_s = _build.build()
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=power,
+         kernel_build_s=build_s)
+    golden = json.loads(GOLDEN.read_text())
+    cfg = FarnebackConfig()
+
+    stats = {}
+    prev, nxt = frames(1080, 1920, dev)
+    kernel_phases(prev, nxt, cfg, stats)
+    del prev, nxt
+    torch.cuda.empty_cache()
+    e2e_phase("e2e_1080p", 1080, 1920, cfg, dev, golden, power, stats)
+    e2e_phase("e2e_extractor", 72, 129, cfg, dev, golden, power)
+
+    kernels = []
+    for kid in ("K3", "K2", "K1"):
+        name, source, replaces = KERNEL_INFO[kid]
+        kernels.append({"name": f"{kid} {name}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": stats[kid]["launches"],
+                        "max_abs_err": stats[kid]["max_abs_err"],
+                        "ms": stats[kid]["ms"],
+                        "plain_ms": stats[kid]["plain_ms"]})
+    print(power)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

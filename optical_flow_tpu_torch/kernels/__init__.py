@@ -1,0 +1,48 @@
+"""Hand-written CUDA kernels of the main path and their Python wrappers.
+
+  K3 `gauss_resize.gauss_resize`  pyramid level from the full-res frame
+  K2 `polyexp.poly_exp`           polynomial expansion, optional pre-smooth
+  K1 `update_gather.update_blur`  one fused iterate step
+  `fused_iterate.update_flow_fused` drives K1 over a level's iterations.
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor; nothing falls back from one to the other.
+`LAUNCHES` counts kernel launches (never plain-version calls), so that a
+run can show that the main path went through the kernels.
+"""
+
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+
+# Dynamic shared memory one block may use on Hopper (sm_90).
+MAX_SMEM = 227 * 1024
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cuda(t) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor; raises for any
+    other device, which has neither a kernel nor a plain path here."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.is_cuda
+
+
+def check(t, name: str, device, dtypes, ndim: int) -> None:
+    """Raise unless `t` is a contiguous tensor of `ndim` dims on `device`
+    with a dtype in `dtypes`: what the CUDA kernels take."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")

@@ -1,0 +1,88 @@
+"""Builds the CUDA kernels at first use and loads them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
+nvcc builds it in seconds.  The shared library goes to
+`build/optical_flow_tpu_torch/<hash>/lib<name>.so` at the repo root, where
+<hash> covers the sources and the flags: a changed source builds anew, an
+unchanged one is loaded as it is.  Nothing here runs at import time.
+
+`--fmad=false`: the plain versions run unfused elementwise ops, and FMA
+contraction would move the rint boundary of the displaced fetch and the
+last bits of every stencil.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "optical_flow_tpu_torch"
+SOURCES = ("gauss_resize", "polyexp", "update_blur")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default place."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names=SOURCES) -> float:
+    """Compile every library in `names` that is not built yet, in parallel.
+    Returns the seconds it took; raises with nvcc's output on failure."""
+    t0 = time.perf_counter()
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        procs.append((lib, tmp, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{lib.name}: nvcc exit {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if need be."""
+    with _lock:
+        if name not in _libs:
+            build((name,))
+            _libs[name] = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+        return _libs[name]

@@ -1,0 +1,61 @@
+"""Farnebäck configuration, a copy of `optical_flow_tpu.utils.config`.
+
+The copy exists because the card's machine has no JAX, and the JAX
+package's `__init__` imports it.  `tests/test_torch_params.py` pins the
+two together.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# Flag bits, mirroring cv2's public constants so configs translate 1:1.
+OPTFLOW_USE_INITIAL_FLOW = 4
+OPTFLOW_FARNEBACK_GAUSSIAN = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class FarnebackConfig:
+    """Parameters of the Farnebäck dense-flow algorithm.
+
+    Defaults are the values frozen at both call sites of the reference
+    scripts (`optical_flow.py:53-59`, `visualize_optical_flow.py:40-46`).
+    """
+
+    pyr_scale: float = 0.5
+    levels: int = 3
+    winsize: int = 15
+    iterations: int = 3
+    poly_n: int = 5
+    poly_sigma: float = 1.2
+    flags: int = 0
+
+    @property
+    def use_initial_flow(self) -> bool:
+        return bool(self.flags & OPTFLOW_USE_INITIAL_FLOW)
+
+    @property
+    def gaussian_window(self) -> bool:
+        return bool(self.flags & OPTFLOW_FARNEBACK_GAUSSIAN)
+
+    def validate(self) -> "FarnebackConfig":
+        if not (0.0 < self.pyr_scale < 1.0):
+            raise ValueError(f"pyr_scale must be in (0, 1), got {self.pyr_scale}")
+        if self.levels < 1:
+            raise ValueError(f"levels must be >= 1, got {self.levels}")
+        if self.winsize < 1:
+            raise ValueError(f"winsize must be >= 1, got {self.winsize}")
+        if self.iterations < 1:
+            raise ValueError(f"iterations must be >= 1, got {self.iterations}")
+        if self.poly_n < 1:
+            raise ValueError(f"poly_n must be >= 1, got {self.poly_n}")
+        return self
+
+
+def config_from_jax(obj) -> FarnebackConfig:
+    """A FarnebackConfig from any object with the same fields (such as the
+    JAX package's FarnebackConfig) or from its `dataclasses.asdict` dict."""
+    names = [f.name for f in dataclasses.fields(FarnebackConfig)]
+    if isinstance(obj, dict):
+        return FarnebackConfig(**{n: obj[n] for n in names})
+    return FarnebackConfig(**{n: getattr(obj, n) for n in names})

@@ -1,0 +1,178 @@
+"""The CUDA kernels against their plain versions on the card, at shapes and
+options that chip_smoke.py does not reach: frames smaller than a tile,
+odd dims, float32 input, other window and expansion sizes, the wrappers'
+input checks, and the main path against the plain path on the CPU.
+
+These need an NVIDIA card and nvcc, and skip without them.  The card's
+machine has no JAX, and tests/conftest.py imports it, so run them there
+without the conftest, from the repo root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances are chip_smoke.py's: K2 and K3 atol=1e-4, rtol=1e-5, K1 one
+step atol=1e-3, rtol=1e-3 (the repo's Pallas-vs-XLA tolerances); the
+kernels are built with --fmad=false and follow their plain versions op
+for op, so they agree to the bit in practice.  Whole-path flow uses the
+share gate of chip_smoke.py (rare rint flips at .5 boundaries).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
+from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
+from optical_flow_tpu_torch.kernels.polyexp import poly_exp
+from optical_flow_tpu_torch.kernels.update_gather import update_blur
+from optical_flow_tpu_torch.models.farneback import core
+from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
+from optical_flow_tpu_torch.oracle.synthetic import (motion_boundary_pair,
+                                                     smooth_texture_pair)
+from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
+from optical_flow_tpu_torch.utils.config import FarnebackConfig
+
+pytestmark = pytest.mark.cuda
+
+STENCIL_TOL = dict(atol=1e-4, rtol=1e-5)
+STEP_TOL = dict(atol=1e-3, rtol=1e-3)
+LEVEL_TAPS = {1: gaussian_kernel(3, 0.5), 2: gaussian_kernel(9, 1.5),
+              3: gaussian_kernel(19, 3.5)}
+PRE_TAPS = gaussian_kernel(3, 0.0)
+
+
+@pytest.fixture
+def dev():
+    """The first CUDA card, with TF32 off; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.reset_launches()
+    return torch.device("cuda", 0)
+
+
+def _frames(n, h, w, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n, h, w), dtype=np.uint8)
+
+
+def _close(got, ref, tol):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("k,h,w,oh,ow", [
+    (1, 72, 129, 36, 64),     # the extractor's L1: 129 does not divide by 2
+    (2, 37, 53, 9, 13),
+    (3, 41, 67, 5, 8),
+    (1, 5, 7, 3, 4),          # frame smaller than one output tile
+    (2, 20, 24, 31, 40),      # upscale: each source column feeds many outputs
+])
+def test_gauss_resize_kernel(dev, k, h, w, oh, ow, dtype):
+    img = _frames(3, h, w)
+    if dtype == "f32":
+        img = img.astype(np.float32) / 7.0
+    img = torch.as_tensor(img).to(dev)
+    got = gauss_resize(img, LEVEL_TAPS[k], ow, oh)
+    assert got.shape == (3, oh, ow) and got.dtype == torch.float32
+    _close(got, core.gaussian_blur_resize(img, LEVEL_TAPS[k], ow, oh), STENCIL_TOL)
+    assert kernels.LAUNCHES["K3"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("h,w,poly_n,poly_sigma", [
+    (37, 53, 5, 1.2), (5, 7, 5, 1.2), (33, 257, 7, 1.5), (2, 40, 3, 0.0)])
+def test_poly_exp_kernel(dev, h, w, poly_n, poly_sigma, pre, dtype):
+    img = _frames(2, h, w, seed=1)
+    if dtype == "f32":
+        img = img.astype(np.float32) * 0.5 - 10.0
+    img = torch.as_tensor(img).to(dev)
+    taps = PRE_TAPS if pre else None
+    got = poly_exp(img, poly_n, poly_sigma, pre_taps=taps)
+    assert got.shape == (2, 5, h, w)
+    _close(got, core.poly_exp(img, poly_n, poly_sigma, pre_taps=taps), STENCIL_TOL)
+    assert kernels.LAUNCHES["K2"] == 1
+
+
+@pytest.mark.parametrize("h,w,winsize", [
+    (37, 53, 15), (5, 7, 15), (72, 129, 9), (40, 70, 21), (33, 47, 1),
+    (45, 61, 10)])
+def test_update_blur_kernel(dev, h, w, winsize):
+    """One step and a 3-step level loop, on R of a texture pair and a
+    random flow of up to 6 px, so that fetches leave the image."""
+    f1, f2 = smooth_texture_pair(h, w, (1, 2))
+    R = core.poly_exp(torch.as_tensor(np.stack([f1, f1, f2, f2])).to(dev), 5, 1.2)
+    flow = (torch.as_tensor(np.random.default_rng(2).random((2, 2, h, w)),
+                            dtype=torch.float32) - 0.5).to(dev) * 12.0
+    R0, R1 = R[:2].contiguous(), R[2:].contiguous()
+    _close(update_blur(R0, R1, flow, winsize),
+           core.update_step(R0, R1, flow, winsize), STEP_TOL)
+    kept = flow.clone()
+    _close(update_flow_fused(R0, R1, flow, winsize, 3),
+           core.update_flow(R0, R1, flow, winsize, 3), STEP_TOL)
+    assert torch.equal(flow, kept)            # the caller's flow is not written
+    assert kernels.LAUNCHES["K1"] == 4
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    img = torch.zeros((2, 40, 64), dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError):
+        gauss_resize(img.to(torch.int32), LEVEL_TAPS[1], 32, 20)
+    with pytest.raises(ValueError):
+        gauss_resize(img[:, :, ::2], LEVEL_TAPS[1], 16, 20)       # not contiguous
+    with pytest.raises(ValueError):
+        gauss_resize(img, [0.5, 0.5], 32, 20)                     # even tap count
+    with pytest.raises(ValueError):
+        gauss_resize(img[:, :9], LEVEL_TAPS[3], 32, 5)            # frame <= radius
+    with pytest.raises(ValueError):
+        poly_exp(img[0], 5, 1.2)                                  # (H, W)
+    with pytest.raises(ValueError):
+        poly_exp(img, 11, 1.2)
+    R = torch.zeros((1, 5, 20, 32), device=dev)
+    flow = torch.zeros((1, 2, 20, 32), device=dev)
+    with pytest.raises(ValueError):
+        update_blur(R, R, flow, 15, out=flow)                     # in place
+    with pytest.raises(ValueError):
+        update_blur(R, R[:, :, :10].contiguous(), flow, 15)
+    with pytest.raises(ValueError):
+        update_blur(R, R.cpu(), flow, 15)
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0}
+
+
+@pytest.mark.parametrize("pair", ["smooth", "boundary"])
+@pytest.mark.parametrize("h,w", [(96, 128), (72, 129), (37, 53)])
+def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
+    """calc_flow_batched through the kernels (numpy frames uploaded as
+    uint8) against the plain path on the CPU, which the CPU tests hold
+    to the JAX package."""
+    f1, f2 = (smooth_texture_pair(h, w, (2, 3)) if pair == "smooth"
+              else motion_boundary_pair(h, w))
+    prev, nxt = np.stack([f1, f2]), np.stack([f2, f1])
+    got = calc_flow_batched(prev, nxt, device=dev)
+    assert got.is_cuda and got.shape == (2, h, w, 2)
+    n_levels = kernels.LAUNCHES["K2"]
+    assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
+                                "K3": n_levels - 1}
+    ref = calc_flow_batched(prev, nxt)
+    d = (got.cpu() - ref).abs()
+    assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
+    assert float(d.mean()) <= 1e-3
+    sums = magnitude_sums(torch.as_tensor(prev).to(dev),
+                          torch.as_tensor(nxt).to(dev), FarnebackConfig())
+    torch.testing.assert_close(sums.cpu(), magnitude_sums(prev, nxt),
+                               rtol=1e-4, atol=0.0)
+
+
+def test_float_frames_on_the_card(dev):
+    f1, f2 = smooth_texture_pair(72, 129, (2, 3))
+    prev = torch.as_tensor(f1[None].astype(np.float32)).to(dev)
+    nxt = torch.as_tensor(f2[None].astype(np.float32)).to(dev)
+    got = calc_flow_batched(prev, nxt)
+    ref = calc_flow_batched(prev, nxt, plain=True)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
+    assert kernels.LAUNCHES["K1"] > 0
