@@ -5,16 +5,19 @@ Run from the repo root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from `optical_flow_tpu_torch/csrc/`,
-holds each against its plain PyTorch version at the shapes of the 1080p
-B=16 main path, then drives `magnitude_sums` / `calc_flow_batched` at
-1080x1920 and at the extractor's 72x129, checks the flow against the
-plain path on the card, against the true shift and against the JAX
-package's golden numbers (`tests/data/torch_port_golden.json`), and times
-both paths.  One JSON line per phase; then the card's nvidia-smi line,
-the kernels summary and, last, {"ok": true, "device": {...}}.  Any failed
-check raises: the script then exits non-zero and prints no result.  It
-refuses to run without a CUDA card.  It imports no JAX.
+It builds the four CUDA kernels from `optical_flow_tpu_torch/csrc/`
+(one nvcc per source, in parallel) and holds each against its plain
+PyTorch version at the shapes of the 1080p B=16 paths.  Then it drives
+the extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
+and at the extractor's 72x129, and the visualizer's device loop
+(`pipeline/visualizer.py:visualize_frames`: chained pyramid, K4 colorize,
+download) on 17 frames at 1080x1920 fed from memory.  Each path is
+checked against the plain path on the card, the true shift and the JAX
+package's golden numbers (`tests/data/torch_port_golden.json`), and both
+paths are timed.  One JSON line per phase; then the card's nvidia-smi
+line, the kernels summary and, last, {"ok": true, "device": {...}}.  Any
+failed check raises: the script then exits non-zero and prints no result.
+It refuses to run without a CUDA card.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ BATCH = 16
 CROP = 32
 WARMUP, TIMED = 3, 10
 KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3)}
+BGR_SHARE = 1e-3          # at most this share of bytes 1 level off (and none more)
+GOLDEN_BGR_SHARE = 1e-2   # sampled bytes that may differ from the JAX golden file
 KERNEL_INFO = {
     "K3": ("gauss_resize", "optical_flow_tpu_torch/csrc/gauss_resize.cu",
            "optical_flow_tpu/pallas/gauss_resize.py:345"),
@@ -42,6 +47,8 @@ KERNEL_INFO = {
            "optical_flow_tpu/pallas/polyexp.py:645"),
     "K1": ("update_blur", "optical_flow_tpu_torch/csrc/update_blur.cu",
            "optical_flow_tpu/pallas/update_gather.py:956"),
+    "K4": ("colorize", "optical_flow_tpu_torch/csrc/colorize.cu",
+           "optical_flow_tpu/pallas/colorize.py:125"),
 }
 
 
@@ -70,6 +77,31 @@ def errors(got, ref):
 def require_close(name: str, got, ref, atol: float, rtol: float) -> None:
     bad = int(((got - ref).abs() > atol + rtol * ref.abs()).sum())
     require(bad == 0, f"{name}: {bad} values outside atol={atol} rtol={rtol}")
+
+
+def require_bgr_close(name: str, got, ref) -> dict:
+    """At most 1 level apart, on at most BGR_SHARE of the bytes."""
+    d = (got.int() - ref.int()).abs()
+    share = float((d > 0).float().mean())
+    require(int(d.max()) <= 1 and share <= BGR_SHARE,
+            f"{name}: max diff {int(d.max())}, {share} of the bytes differ")
+    return {"max_diff": int(d.max()), "share_differing": share}
+
+
+def median_s(fn) -> float:
+    """Median wall seconds of fn over TIMED runs after WARMUP, each ended
+    by torch.cuda.synchronize()."""
+    import torch
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -178,7 +210,7 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None):
     prev, nxt = frames(h, w, dev)
     n_levels = len(build_plan(h, w, cfg).levels)
     expected = {"K3": n_levels - 1, "K2": n_levels,
-                "K1": n_levels * cfg.iterations}
+                "K1": n_levels * cfg.iterations, "K4": 0}
     reset_launches()
     sums = magnitude_sums(prev, nxt, cfg)
     torch.cuda.synchronize()
@@ -187,7 +219,7 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None):
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
     require(launches == expected, f"{name}: launches {launches} != {expected}")
     if stats is not None:
-        for kid in stats:
+        for kid in ("K1", "K2", "K3"):
             stats[kid]["launches"] = launches[kid]
 
     flow = calc_flow_batched(prev, nxt, cfg)
@@ -228,21 +260,136 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None):
     del flow
 
     def pairs_per_s(plain: bool) -> float:
-        for _ in range(WARMUP):
-            magnitude_sums(prev, nxt, cfg, plain=plain)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(TIMED):
-            t0 = time.perf_counter()
-            magnitude_sums(prev, nxt, cfg, plain=plain)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return BATCH / float(np.median(times))
+        return BATCH / median_s(lambda: magnitude_sums(prev, nxt, cfg, plain=plain))
 
     fields["pairs_per_s"] = pairs_per_s(False)
     fields["plain_pairs_per_s"] = pairs_per_s(True)
     fields["card"] = power
     emit(name, h=h, w=w, batch=BATCH, **fields)
+
+
+def kernel_k4_phase(h: int, w: int, dev, stats) -> None:
+    """K4 against its plain version: a B=16 random flow of up to 6 px,
+    and one all-zero frame (constant magnitude: value 0)."""
+    import torch
+    from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
+    from optical_flow_tpu_torch.ops import colorize
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = {
+        f"random_B{BATCH}": (torch.rand((BATCH, 2, h, w), generator=gen,
+                                        device=dev) - 0.5) * 12.0,
+        "zero_B1": torch.zeros((1, 2, h, w), device=dev),
+    }
+    rows = []
+    for label, flow in cases.items():
+        got = flow_to_bgr_planar(flow)
+        ref = colorize.flow_to_bgr_planar(flow)
+        torch.cuda.synchronize()
+        diff = int((got.int() - ref.int()).abs().max())
+        require(diff == 0, f"K4 {label}: max byte diff {diff} against the plain version")
+        if label.startswith("zero"):
+            require(not bool(got.any()), "K4: zero flow must give black images")
+        t_k = cuda_ms(lambda: flow_to_bgr_planar(flow), 20)
+        t_p = cuda_ms(lambda: colorize.flow_to_bgr_planar(flow), 5)
+        px = flow.shape[0] * flow.shape[2] * flow.shape[3]
+        rows.append({"case": label, "shape": list(flow.shape), "max_abs_err": diff,
+                     "ms": t_k, "plain_ms": t_p,
+                     # flow read by both launches, BGR written once
+                     "gb_per_s_at_19_b_per_px": 19 * px / t_k / 1e6})
+    del cases
+    stats["K4"] = {"ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+                   "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    emit("kernel_K4", name=KERNEL_INFO["K4"][0], tolerance="byte-equal",
+         cases=rows)
+
+
+def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
+                         stats) -> None:
+    """The visualizer's device loop on 17 frames fed from memory, f1, f2,
+    f1, ...: 16 pairs whose true flow alternates between (-3, -2) and
+    (3, 2)."""
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.models.farneback.flow import (
+        calc_flow_batched, calc_flow_bgr_chain_batched, calc_flow_chain_batched)
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
+    from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.pipeline.visualizer import visualize_frames
+
+    f1, f2 = smooth_texture_pair(h, w, SHIFT)
+    seq = [(float(i), f2 if i % 2 else f1) for i in range(BATCH + 1)]
+    chunk = pair_chunk_for(h, w, device=dev)
+
+    def run(plain: bool, write, chunk_size: int = chunk) -> None:
+        n = visualize_frames(seq, write, cfg, chunk_size=chunk_size,
+                             device=dev, plain=plain)
+        require(n == BATCH, f"{name}: {n} images written, expected {BATCH}")
+
+    def loop(plain: bool, chunk_size: int = chunk) -> np.ndarray:
+        out = []
+        run(plain, lambda pos, bgr: out.append(bgr), chunk_size)
+        return np.stack(out)
+
+    n_levels = len(build_plan(h, w, cfg).levels)
+    n_chunks = -(-BATCH // chunk)
+    expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
+                "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks}
+    reset_launches()
+    bgr = loop(False)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for kid in ("K1", "K2", "K3", "K4"):
+        require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
+    require(launches == expected, f"{name}: launches {launches} != {expected}")
+    stats["K4"]["launches"] = launches["K4"]
+    require(bgr.shape == (BATCH, 3, h, w) and bgr.dtype == np.uint8,
+            f"{name}: BGR {bgr.shape} {bgr.dtype}")
+    require(np.array_equal(loop(False, chunk_size=5), bgr),
+            f"{name}: chunks of 5 pairs do not give the one-chunk images")
+    vs_plain = require_bgr_close(name, torch.as_tensor(bgr),
+                                 torch.as_tensor(loop(True)))
+
+    frames_dev = torch.as_tensor(np.stack([g for _, g in seq])).to(dev)
+    chain = calc_flow_chain_batched(frames_dev, cfg)
+    pairs = calc_flow_batched(frames_dev[:-1], frames_dev[1:], cfg)
+    torch.cuda.synchronize()
+    require(torch.equal(chain, pairs), f"{name}: chained flow != batched flow")
+    del pairs
+    truth = torch.tensor([TRUE_FLOW, [-v for v in TRUE_FLOW]], device=dev)
+    truth = truth[torch.arange(BATCH, device=dev) % 2][:, None, None, :]
+    inner = chain[:, CROP:h - CROP, CROP:w - CROP]
+    epe = float((inner - truth).norm(dim=-1).mean())
+    require(epe <= 0.5, f"{name}: interior EPE {epe} > 0.5 px")
+    del chain, inner
+
+    g = golden[f"chain_bgr_{h}x{w}"]
+    samples = bgr[:2][:, :, g["sample_y"], g["sample_x"]].astype(np.int32)
+    ref = np.asarray(g["sample_bgr"], dtype=np.int32)
+    golden_share = float((samples != ref).mean())
+    require(golden_share <= GOLDEN_BGR_SHARE,
+            f"{name}: {golden_share} of the golden BGR samples differ")
+
+    def device_only(plain: bool) -> float:
+        return BATCH / median_s(lambda: calc_flow_bgr_chain_batched(frames_dev, cfg, plain=plain))
+
+    def with_download(plain: bool) -> float:
+        # the writer drops each image, as a JPEG pool would take it over
+        return BATCH / median_s(lambda: run(plain, lambda pos, bgr: None))
+
+    out = torch.as_tensor(bgr).to(dev)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    download_s = median_s(lambda: host.copy_(out, non_blocking=True))
+    emit(name, h=h, w=w, pairs=BATCH, chunk=chunk, launches=launches,
+         vs_plain=vs_plain, interior_epe_px=epe,
+         vs_jax_golden={"samples": int(ref.size), "share_differing": golden_share,
+                        "max_diff": int(np.abs(samples - ref).max())},
+         device_only_pairs_per_s=device_only(False),
+         device_only_plain_pairs_per_s=device_only(True),
+         with_download_pairs_per_s=with_download(False),
+         with_download_plain_pairs_per_s=with_download(True),
+         download_ms=download_s * 1e3, download_mb=out.numel() / 1e6, card=power)
 
 
 def main() -> int:
@@ -273,9 +420,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     e2e_phase("e2e_1080p", 1080, 1920, cfg, dev, golden, power, stats)
     e2e_phase("e2e_extractor", 72, 129, cfg, dev, golden, power)
+    torch.cuda.empty_cache()
+    kernel_k4_phase(1080, 1920, dev, stats)
+    torch.cuda.empty_cache()
+    e2e_visualizer_phase("e2e_visualizer_1080p", 1080, 1920, cfg, dev, golden,
+                         power, stats)
 
     kernels = []
-    for kid in ("K3", "K2", "K1"):
+    for kid in ("K3", "K2", "K1", "K4"):
         name, source, replaces = KERNEL_INFO[kid]
         kernels.append({"name": f"{kid} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,

@@ -3,6 +3,7 @@
   K3 `gauss_resize.gauss_resize`  pyramid level from the full-res frame
   K2 `polyexp.poly_exp`           polynomial expansion, optional pre-smooth
   K1 `update_gather.update_blur`  one fused iterate step
+  K4 `colorize.flow_to_bgr_planar` flow -> BGR for the visualizer
   `fused_iterate.update_flow_fused` drives K1 over a level's iterations.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
@@ -11,7 +12,7 @@ version for a CPU tensor; nothing falls back from one to the other.
 run can show that the main path went through the kernels.
 """
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "optical_flow_tpu_torch"
-SOURCES = ("gauss_resize", "polyexp", "update_blur")
+SOURCES = ("colorize", "gauss_resize", "polyexp", "update_blur")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

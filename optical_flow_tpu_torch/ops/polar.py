@@ -34,10 +34,37 @@ def fast_atan2_deg(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def magnitude(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The magnitude half of cart_to_polar."""
-    return torch.sqrt(x * x + y * y)
+    """The magnitude half of cart_to_polar: sqrt(x*x + y*y), correctly
+    rounded to f32.  PyTorch's f32 sqrt is on a card, but not on the CPU
+    (with AVX512 about 0.7 % of values are 1 ulp off, and which ones
+    depends on how the work is split across threads); there the f64 sqrt
+    rounded to f32 is used, which is exact since 53 >= 2 * 24 + 2."""
+    s = x * x + y * y
+    if s.is_cuda:
+        return torch.sqrt(s)
+    return torch.sqrt(s.double()).float()
 
 
 def cart_to_polar(x: torch.Tensor, y: torch.Tensor):
     """cv2.cartToPolar(x, y): (magnitude, angle-in-radians [0, 2*pi))."""
     return magnitude(x, y), fast_atan2_deg(y, x) * _DEG2RAD
+
+
+def minmax_scale_shift(mag: torch.Tensor):
+    """Per-frame (scale, shift) of cv2.normalize NORM_MINMAX to [0, 255],
+    in f32, each of shape (..., 1, 1): 255 / (max - min) where the range
+    exceeds f32(DBL_EPSILON), else 0 (constant input maps to all zeros)."""
+    smin = torch.amin(mag, dim=(-2, -1), keepdim=True)
+    smax = torch.amax(mag, dim=(-2, -1), keepdim=True)
+    rng = smax - smin
+    # a true f32 division: `255.0 / rng` would be reciprocal(rng) * 255
+    scale = torch.where(rng > _DBL_EPS, torch.full_like(rng, 255.0) / rng,
+                        torch.zeros_like(rng))
+    return scale, -smin * scale
+
+
+def normalize_minmax_u8_value(mag: torch.Tensor) -> torch.Tensor:
+    """cv2.normalize(mag, None, 0, 255, NORM_MINMAX) -> f32 in [0, 255],
+    per frame over the last two axes."""
+    scale, shift = minmax_scale_shift(mag)
+    return mag * scale + shift

@@ -1,4 +1,5 @@
-"""Farnebäck configuration, a copy of `optical_flow_tpu.utils.config`.
+"""Farnebäck and visualizer configuration, copies of
+`optical_flow_tpu.utils.config`.
 
 The copy exists because the card's machine has no JAX, and the JAX
 package's `__init__` imports it.  `tests/test_torch_params.py` pins the
@@ -50,6 +51,16 @@ class FarnebackConfig:
         if self.poly_n < 1:
             raise ValueError(f"poly_n must be >= 1, got {self.poly_n}")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class VisualizerConfig:
+    """Shot-visualizer parameters (reference `visualize_optical_flow.py:6`)."""
+
+    step_size: int = 300          # milliseconds, module constant STEP_SIZE
+    jpeg_quality: int = 95        # cv2.imwrite default
+    validate: bool = False        # sampled EPE against cv2: not ported yet
+    farneback: FarnebackConfig = dataclasses.field(default_factory=FarnebackConfig)
 
 
 def config_from_jax(obj) -> FarnebackConfig:

@@ -1,12 +1,16 @@
-"""Writes tests/data/torch_port_golden.json: the JAX package's flow on the
-CPU for the pairs that chip_smoke.py runs through the PyTorch port.
+"""Writes tests/data/torch_port_golden.json: the JAX package's flow and
+flow images on the CPU for the inputs that chip_smoke.py runs through the
+PyTorch port.
 
 The card's machine has no JAX, so this file is how the port's output is
 held to the JAX package at full size there.  For each frame size, on
-`smooth_texture_pair(h, w, (2, 3))` (true flow (-3, -2)), it records the
-pair's magnitude sum (the extractor's number), the interior mean flow
-and the flow at 512 pixels drawn with `np.random.default_rng(0)`.
-tests/test_torch_flow.py regenerates the 72x129 entry and compares.
+`smooth_texture_pair(h, w, (2, 3))` (true flow (-3, -2)), the `<h>x<w>`
+entry records the pair's magnitude sum (the extractor's number), the
+interior mean flow and the flow at 512 pixels drawn with
+`np.random.default_rng(0)`; the `chain_bgr_<h>x<w>` entry records the
+planar BGR of `calc_flow_bgr_chain_batched` on the chain [f1, f2, f1]
+(the visualizer's pairs, flow (-3, -2) then (3, 2)) at those pixels.
+tests/test_torch_flow.py regenerates the 72x129 entries and compares.
 
 Run: JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -52,9 +56,31 @@ def golden_entry(h: int, w: int) -> dict:
     }
 
 
+def chain_bgr_entry(h: int, w: int) -> dict:
+    import jax.numpy as jnp
+
+    from optical_flow_tpu.models.farneback.flow import \
+        calc_flow_bgr_chain_batched
+    from optical_flow_tpu.oracle.synthetic import smooth_texture_pair
+
+    f1, f2 = smooth_texture_pair(h, w, SHIFT)
+    bgr = np.asarray(calc_flow_bgr_chain_batched(jnp.asarray(np.stack([f1, f2, f1]))))
+    rng = np.random.default_rng(0)
+    ys = rng.integers(0, h, N_SAMPLES)
+    xs = rng.integers(0, w, N_SAMPLES)
+    return {
+        "h": h, "w": w, "shift": list(SHIFT), "chain": ["f1", "f2", "f1"],
+        "sample_y": ys.tolist(), "sample_x": xs.tolist(),
+        "sample_bgr": bgr[:, :, ys, xs].tolist(),     # (pairs, 3, samples)
+    }
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO))
-    out = {f"{h}x{w}": golden_entry(h, w) for h, w in SIZES}
+    out = {}
+    for h, w in SIZES:
+        out[f"{h}x{w}"] = golden_entry(h, w)
+        out[f"chain_bgr_{h}x{w}"] = chain_bgr_entry(h, w)
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     GOLDEN.write_text(json.dumps(out, separators=(",", ":")) + "\n")
     print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes)")

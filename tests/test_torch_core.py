@@ -22,12 +22,14 @@ from optical_flow_tpu.oracle.synthetic import smooth_texture_pair
 from optical_flow_tpu.ops import polar as jpolar
 from optical_flow_tpu.ops import resize as jresize
 from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
 from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.kernels.update_gather import update_blur
 from optical_flow_tpu_torch.models.farneback import core as tcore
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
+from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.ops import polar as tpolar
 from optical_flow_tpu_torch.ops import resize as tresize
 
@@ -179,4 +181,5 @@ def test_wrappers_on_cpu_are_the_plain_versions():
                        tcore.update_step(R0, R1, flow, 15))
     assert torch.equal(update_flow_fused(R0, R1, flow, 15, 3),
                        tcore.update_flow(R0, R1, flow, 15, 3))
-    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0}
+    assert torch.equal(flow_to_bgr_planar(flow), colorize.flow_to_bgr_planar(flow))
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, at shapes and
 options that chip_smoke.py does not reach: frames smaller than a tile,
 odd dims, float32 input, other window and expansion sizes, the wrappers'
-input checks, and the main path against the plain path on the CPU.
+input checks, the main path against the plain path on the CPU, and the
+visualizer's chained pyramid and K4 colorization.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -13,7 +14,10 @@ Tolerances are chip_smoke.py's: K2 and K3 atol=1e-4, rtol=1e-5, K1 one
 step atol=1e-3, rtol=1e-3 (the repo's Pallas-vs-XLA tolerances); the
 kernels are built with --fmad=false and follow their plain versions op
 for op, so they agree to the bit in practice.  Whole-path flow uses the
-share gate of chip_smoke.py (rare rint flips at .5 boundaries).
+share gate of chip_smoke.py (rare rint flips at .5 boundaries).  K4 is
+held byte-equal to its plain version; the card's BGR to the CPU's by the
+gate of tests/test_pallas_kernels.py:1289-1291 (at most 1 level, on at
+most 1e-3 of the bytes), which a rint flip of the flow could need.
 """
 
 import numpy as np
@@ -21,13 +25,16 @@ import pytest
 import torch
 
 from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
 from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.kernels.update_gather import update_blur
 from optical_flow_tpu_torch.models.farneback import core
-from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+from optical_flow_tpu_torch.models.farneback.flow import (
+    calc_flow_batched, calc_flow_bgr_chain_batched, calc_flow_chain_batched)
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
+from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.oracle.synthetic import (motion_boundary_pair,
                                                      smooth_texture_pair)
 from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
@@ -139,7 +146,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         update_blur(R, R[:, :, :10].contiguous(), flow, 15)
     with pytest.raises(ValueError):
         update_blur(R, R.cpu(), flow, 15)
-    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0}
+    with pytest.raises(TypeError):
+        flow_to_bgr_planar(flow.double())                         # dtype
+    with pytest.raises(ValueError):
+        flow_to_bgr_planar(flow[0])                               # rank
+    with pytest.raises(ValueError):
+        flow_to_bgr_planar(R)                                     # 5 channels
+    with pytest.raises(ValueError):
+        flow_to_bgr_planar(flow[:, :, :, ::2])                    # not contiguous
+    with pytest.raises(ValueError):
+        flow_to_bgr_planar(flow.to("meta"))                       # device
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 @pytest.mark.parametrize("pair", ["smooth", "boundary"])
@@ -155,7 +172,7 @@ def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
     assert got.is_cuda and got.shape == (2, h, w, 2)
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
-                                "K3": n_levels - 1}
+                                "K3": n_levels - 1, "K4": 0}
     ref = calc_flow_batched(prev, nxt)
     d = (got.cpu() - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
@@ -176,3 +193,43 @@ def test_float_frames_on_the_card(dev):
     d = (got - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
     assert kernels.LAUNCHES["K1"] > 0
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (33, 257)])
+def test_colorize_kernel(dev, h, w, B):
+    """Random flow of up to 6 px plus one all-zero frame (constant
+    magnitude: value 0 everywhere); byte-equal to the plain version."""
+    flow = (np.random.default_rng(4).random((B, 2, h, w)) - 0.5) * 12.0
+    flow[-1] = 0.0
+    flow = torch.as_tensor(flow, dtype=torch.float32).to(dev)
+    got = flow_to_bgr_planar(flow)
+    assert got.shape == (B, 3, h, w) and got.dtype == torch.uint8
+    ref = colorize.flow_to_bgr_planar(flow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got.cpu(), colorize.flow_to_bgr_planar(flow.cpu()))
+    assert kernels.LAUNCHES["K4"] == 1
+
+
+@pytest.mark.parametrize("h,w", [(72, 129), (37, 53)])
+def test_chain_on_the_card(dev, h, w):
+    """The chained flow equals the batched flow of the same pairs to the
+    bit, and the card's BGR matches the CPU plain path's."""
+    f1, f2 = smooth_texture_pair(h, w, (2, 3))
+    b1, _ = motion_boundary_pair(h, w)
+    frames = np.stack([f1, f2, f1, b1])
+    got = torch.as_tensor(frames).to(dev)
+    chain = calc_flow_chain_batched(got)
+    pairs = calc_flow_batched(got[:-1], got[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(chain, pairs)
+    kernels.reset_launches()
+    bgr = calc_flow_bgr_chain_batched(got)
+    n_levels = kernels.LAUNCHES["K2"]
+    assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
+                                "K3": n_levels - 1, "K4": 1}
+    ref = calc_flow_bgr_chain_batched(frames).numpy()
+    d = np.abs(bgr.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
+    assert d.max() <= 1
+    assert (d > 0).mean() <= 1e-3

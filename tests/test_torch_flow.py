@@ -28,11 +28,12 @@ from optical_flow_tpu.models.farneback.flow import calc_flow_batched as jax_flow
 from optical_flow_tpu.oracle.synthetic import (motion_boundary_pair,
                                                smooth_texture_pair)
 from optical_flow_tpu.ops.polar import cart_to_polar as jax_cart_to_polar
-from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+from optical_flow_tpu_torch.models.farneback.flow import (
+    calc_flow_batched, calc_flow_bgr_chain_batched)
 from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
-from make_torch_port_golden import GOLDEN, golden_entry
+from make_torch_port_golden import GOLDEN, chain_bgr_entry, golden_entry
 
 SHARE = 0.999
 PAIRS = {
@@ -94,10 +95,11 @@ def test_calc_flow_batched_rejects_what_is_not_ported():
 
 
 def test_golden_file_is_current():
-    """Regenerate the 72x129 golden entry with the JAX package and compare
-    it with the file chip_smoke.py reads."""
+    """Regenerate the 72x129 golden entries with the JAX package and
+    compare them with the file chip_smoke.py reads."""
     stored = json.loads(Path(GOLDEN).read_text())
-    assert set(stored) == {"1080x1920", "72x129"}
+    assert set(stored) == {"1080x1920", "72x129",
+                           "chain_bgr_1080x1920", "chain_bgr_72x129"}
     assert Path(GOLDEN).stat().st_size < 100_000
     fresh = golden_entry(72, 129)
     old = stored["72x129"]
@@ -109,6 +111,13 @@ def test_golden_file_is_current():
     np.testing.assert_allclose(old["sample_flow"], fresh["sample_flow"],
                                atol=1e-5)
     assert len(stored["1080x1920"]["sample_flow"]) == 512
+    fresh = chain_bgr_entry(72, 129)
+    old = stored["chain_bgr_72x129"]
+    assert (old["sample_y"], old["sample_x"]) == (fresh["sample_y"], fresh["sample_x"])
+    # the stored file was written under XLA's default flags, this run
+    # under the suite's: at most 1e-3 of the sampled bytes may differ
+    assert (np.asarray(old["sample_bgr"]) != np.asarray(fresh["sample_bgr"])).mean() <= 1e-3
+    assert np.asarray(stored["chain_bgr_1080x1920"]["sample_bgr"]).shape == (2, 3, 512)
 
 
 def test_port_matches_golden_at_72x129():
@@ -121,3 +130,13 @@ def test_port_matches_golden_at_72x129():
     flow = calc_flow_batched(prev, nxt).numpy()[0]
     samples = flow[g["sample_y"], g["sample_x"]]
     assert (np.abs(samples - np.asarray(g["sample_flow"])) <= 2e-3).mean() >= 0.99
+
+
+def test_port_chain_bgr_matches_golden_at_72x129():
+    """What chip_smoke.py checks of the visualizer on the card, here
+    through the plain path: the sampled bytes of [f1, f2, f1]."""
+    g = json.loads(Path(GOLDEN).read_text())["chain_bgr_72x129"]
+    f1, f2 = smooth_texture_pair(72, 129, tuple(g["shift"]))
+    bgr = calc_flow_bgr_chain_batched(np.stack([f1, f2, f1])).numpy()
+    samples = bgr[:, :, g["sample_y"], g["sample_x"]]
+    assert (samples != np.asarray(g["sample_bgr"])).mean() <= 1e-2

@@ -1,8 +1,9 @@
 """The port's import hygiene and wrapper contract, on a machine without a
 card: importing every port module (and chip_smoke.py as a module) pulls
 in neither JAX nor the JAX package and initialises no CUDA context; the
-wrappers launch nothing for CPU tensors; the kernel build command targets
-sm_90a without FMA contraction."""
+wrappers, the flow and BGR entries and the visualizer's device loop
+launch nothing for CPU tensors; the kernel build command targets sm_90a
+without FMA contraction."""
 
 import os
 import subprocess
@@ -25,8 +26,12 @@ _PROBE = textwrap.dedent("""
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
     from optical_flow_tpu_torch.kernels.update_gather import update_blur
     from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
-    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
+    from optical_flow_tpu_torch.models.farneback.flow import (
+        calc_flow_batched, calc_flow_bgr_batched, calc_flow_bgr_chain_batched,
+        calc_flow_chain_batched)
     from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
+    from optical_flow_tpu_torch.pipeline.visualizer import visualize_frames
     img = torch.zeros((2, 40, 64), dtype=torch.uint8)
     lv = gauss_resize(img, [0.25, 0.5, 0.25], 32, 20)
     R = poly_exp(lv, 5, 1.2)
@@ -36,6 +41,12 @@ _PROBE = textwrap.dedent("""
     update_flow_fused(R[:1], R[1:], flow, 15, 3)
     calc_flow_batched(img[:1], img[1:])
     magnitude_sums(img[:1].numpy(), img[1:].numpy())
+    flow_to_bgr_planar(torch.ones((2, 2, 20, 32)))
+    calc_flow_chain_batched(img)
+    calc_flow_bgr_batched(img[:1], img[1:])
+    calc_flow_bgr_chain_batched(img)
+    visualize_frames([(0.0, img[0]), (1.0, img[1])], lambda pos, bgr: None,
+                     chunk_size=1)
     print(json.dumps({
         "modules": mods,
         "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -65,11 +76,11 @@ def _probe():
 
 def test_port_imports_no_jax_and_no_cuda():
     r = _probe()
-    assert len(r["modules"]) >= 15
+    assert len(r["modules"]) >= 30
     assert r["jax"] == []
     assert r["jax_package"] == []
     assert r["cuda_initialized"] is False
-    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0}
+    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 def test_no_jax_import_in_port_sources():

@@ -81,6 +81,15 @@ def test_config_from_jax_round_trips(cfg_kw):
         == (jconfig.OPTFLOW_FARNEBACK_GAUSSIAN, jconfig.OPTFLOW_USE_INITIAL_FLOW)
 
 
+def test_visualizer_config_matches_jax():
+    t, j = tconfig.VisualizerConfig(), jconfig.VisualizerConfig()
+    assert ([f.name for f in dataclasses.fields(t)]
+            == [f.name for f in dataclasses.fields(j)])
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        t.step_size = 1
+
+
 def test_config_validate_rejects_like_jax():
     for bad in ({"pyr_scale": 1.0}, {"levels": 0}, {"winsize": 0},
                 {"iterations": 0}, {"poly_n": 0}):
