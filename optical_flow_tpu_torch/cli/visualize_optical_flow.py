@@ -32,8 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the end of a shot in milliseconds")
     parser.add_argument("--validate", action="store_true",
                         help="compute one sampled frame pair with cv2 and log "
-                             "mean EPE vs the 0.5-px gate (not ported yet: "
-                             "raises NotImplementedError)")
+                             "mean EPE vs the 0.5-px gate")
     return parser
 
 

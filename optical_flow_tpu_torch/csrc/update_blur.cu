@@ -3,92 +3,37 @@
 // Replaces the Pallas kernel of optical_flow_tpu/pallas/update_gather.py
 // (fused_update_blur_store, driven by pallas/fused_iterate.py
 // update_flow_fused).  For each pixel:
-//   1. fetch R1 at (clamp(rint(y + dy)), clamp(rint(x + dx))); when the
-//      rounded target leaves the image only R0 terms are used;
-//   2. assemble M = (G11, G12, G22, h1, h2), scaled by the 5-px border
-//      weights;
-//   3. sum M over the winsize x winsize window with replicate borders;
-//   4. solve the 2x2 system, det regularised by +1e-3, for the new flow.
+//   1. M = (G11, G12, G22, h1, h2) from the displaced fetch of R1
+//      (update_matrices.cuh, shared with K5a);
+//   2. sum M over the winsize x winsize window with replicate borders;
+//   3. solve the 2x2 system, det regularised by +1e-3, for the new flow.
 //
 // What bounds it: per output pixel it reads 7 f32 (R0 and the flow) plus a
 // 5-f32 gather of R1, and writes 2 f32, 56 B/px in all, if M stayed on
-// chip; the unfused version would add 2 x 20 B/px of M round trips per
-// step.  So M for a 32x32 output tile plus its (winsize - 1) halo is
+// chip; the unfused version (K5a -> K5b) adds 2 x 20 B/px of M round trips
+// per step.  So M for a 32x32 output tile plus its (winsize - 1) halo is
 // built in shared memory (5 x 46 x 46 f32 at winsize 15), then summed
 // horizontally, then vertically, and solved.  The halo costs (46/32)^2 =
 // 2.1 M evaluations per output pixel; the card's hardware gather makes the
-// displaced fetch a plain clamped load, exact by construction.
+// displaced fetch a plain clamped load, exact by construction.  The tile
+// must fit in shared memory, which bounds winsize (<= 61); larger windows
+// go to K5a -> K5b.
 //
 // Border: halo entries outside the image hold M *at the clamped pixel*,
 // that pixel's border weight included (replicate border of the box sum).
-// Rounding is rintf (half to even, as cvRound); the inside test is taken
-// on the rounded coordinates before clamping.  The input and output flow
-// must be distinct buffers: a step reads its neighbours' flow.  The
-// arithmetic follows the plain version op for op (--fmad=false).
+// The input and output flow must be distinct buffers: a step reads its
+// neighbours' flow.  The arithmetic follows the plain version op for op
+// (--fmad=false).
 
 #include <cuda_runtime.h>
+
+#include "update_matrices.cuh"
 
 namespace {
 
 constexpr int TX = 32;  // output columns per block (one per thread)
 constexpr int TY = 32;  // output rows per block
 constexpr int BY = 8;   // thread rows per block
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// OpenCV's UpdateMatrices border factor along one axis, multiplied in the
-// order of border_scale_field (per k: the leading edge, then the trailing).
-__device__ __forceinline__ float border_weight(int i, int n) {
-  const float bw[5] = {0.14f, 0.14f, 0.4472f, 0.4472f, 0.4472f};
-  float w = 1.0f;
-  const int lim = n < 5 ? n : 5;
-  for (int k = 0; k < lim; ++k) {
-    if (i == k) w *= bw[k];
-    if (i == n - 1 - k) w *= bw[k];
-  }
-  return w;
-}
-
-__device__ __forceinline__ void matrices_at(const float* __restrict__ r0,
-                                            const float* __restrict__ r1,
-                                            const float* __restrict__ fl,
-                                            int y, int x, int H, int W,
-                                            long long plane, float* m) {
-  const long long p = static_cast<long long>(y) * W + x;
-  const float dx = fl[p];
-  const float dy = fl[plane + p];
-  const float fx = rintf(static_cast<float>(x) + dx);
-  const float fy = rintf(static_cast<float>(y) + dy);
-  const bool inside = fx >= 0.0f && fx <= static_cast<float>(W - 1) &&
-                      fy >= 0.0f && fy <= static_cast<float>(H - 1);
-  const int xi = static_cast<int>(fminf(fmaxf(fx, 0.0f), static_cast<float>(W - 1)));
-  const int yi = static_cast<int>(fminf(fmaxf(fy, 0.0f), static_cast<float>(H - 1)));
-  const long long q = static_cast<long long>(yi) * W + xi;
-  const float a0 = r0[p], a1 = r0[plane + p], a2 = r0[2 * plane + p];
-  const float a3 = r0[3 * plane + p], a4 = r0[4 * plane + p];
-  const float d0 = r1[q], d1 = r1[plane + q], d2 = r1[2 * plane + q];
-  const float d3 = r1[3 * plane + q], d4 = r1[4 * plane + q];
-  float r2 = inside ? d0 : 0.0f;
-  float r3 = inside ? d1 : 0.0f;
-  float r4 = inside ? (a2 + d2) * 0.5f : a2;
-  float r5 = inside ? (a3 + d3) * 0.5f : a3;
-  float r6 = inside ? (a4 + d4) * 0.25f : a4 * 0.5f;
-  r2 = (a0 - r2) * 0.5f + (r4 * dy + r6 * dx);
-  r3 = (a1 - r3) * 0.5f + (r6 * dy + r5 * dx);
-  const float sc = border_weight(y, H) * border_weight(x, W);
-  r2 = r2 * sc;
-  r3 = r3 * sc;
-  r4 = r4 * sc;
-  r5 = r5 * sc;
-  r6 = r6 * sc;
-  m[0] = r4 * r4 + r6 * r6;  // G11
-  m[1] = (r4 + r5) * r6;     // G12
-  m[2] = r5 * r5 + r6 * r6;  // G22
-  m[3] = r4 * r2 + r6 * r3;  // h1
-  m[4] = r6 * r2 + r5 * r3;  // h2
-}
 
 __global__ void update_blur_kernel(const float* __restrict__ R0,
                                    const float* __restrict__ R1,
@@ -111,10 +56,10 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   for (int e = tid; e < MH * MW; e += TX * BY) {
     const int ly = e / MW;
     const int lx = e - ly * MW;
-    const int y = clampi(y0 - m + ly, 0, H - 1);
-    const int x = clampi(x0 - m + lx, 0, W - 1);
+    const int y = oft::clampi(y0 - m + ly, 0, H - 1);
+    const int x = oft::clampi(x0 - m + lx, 0, W - 1);
     float mv[5];
-    matrices_at(r0, r1, fl, y, x, H, W, plane, mv);
+    oft::matrices_at(r0, r1, fl, y, x, H, W, plane, mv);
     for (int k = 0; k < 5; ++k) Ms[(k * MH + ly) * MW + lx] = mv[k];
   }
   __syncthreads();

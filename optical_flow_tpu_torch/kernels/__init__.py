@@ -4,7 +4,10 @@
   K2 `polyexp.poly_exp`           polynomial expansion, optional pre-smooth
   K1 `update_gather.update_blur`  one fused iterate step
   K4 `colorize.flow_to_bgr_planar` flow -> BGR for the visualizer
-  `fused_iterate.update_flow_fused` drives K1 over a level's iterations.
+  K5a `update_gather.update_matrices` displaced fetch + M alone
+  K5b `blur_solve.blur_solve`     box or Gaussian window sum of M + solve
+  `fused_iterate.update_flow` drives a level's iterations: K1 for a box
+  window that fits its tile, K5a -> K5b otherwise.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; nothing falls back from one to the other.
@@ -12,7 +15,9 @@ version for a CPU tensor; nothing falls back from one to the other.
 run can show that the main path went through the kernels.
 """
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+import torch
+
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024
@@ -42,6 +47,19 @@ def check(t, name: str, device, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def output(out, shape, device, *inputs):
+    """`out` checked as a contiguous f32 buffer of `shape` on `device` that
+    shares no memory with `inputs`, or a new one when it is None."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    check(out, "out", device, (torch.float32,), len(shape))
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {tuple(shape)}")
+    if any(out.data_ptr() == t.data_ptr() for t in inputs):
+        raise ValueError("out must be a buffer distinct from the inputs")
+    return out
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

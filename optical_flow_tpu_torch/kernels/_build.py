@@ -1,10 +1,11 @@
 """Builds the CUDA kernels at first use and loads them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
-nvcc builds it in seconds.  The shared library goes to
-`build/optical_flow_tpu_torch/<hash>/lib<name>.so` at the repo root, where
-<hash> covers the sources and the flags: a changed source builds anew, an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+nvcc builds it in seconds; `csrc/*.cuh` are headers they share.  The
+shared library goes to `build/optical_flow_tpu_torch/<hash>/lib<name>.so`
+at the repo root, where <hash> covers the sources, the headers and the
+flags: a changed source builds anew, an unchanged one is loaded as it
+is.  Nothing here runs at import time.
 
 `--fmad=false`: the plain versions run unfused elementwise ops, and FMA
 contraction would move the rint boundary of the displaced fetch and the
@@ -24,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "optical_flow_tpu_torch"
-SOURCES = ("colorize", "gauss_resize", "polyexp", "update_blur")
+SOURCES = ("blur_solve", "colorize", "gauss_resize", "polyexp", "update_blur",
+           "update_matrices")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,9 +44,10 @@ def nvcc_path() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    files = [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
+    for path in files:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -1,10 +1,12 @@
-"""The per-level iterate loop over K1 (`update_gather.update_blur`).
+"""A pyramid level's iterate loop on the card: K1, or K5a -> K5b.
 
 Replaces `optical_flow_tpu/pallas/fused_iterate.py` (`update_flow_fused`,
-`:146-272`): `iterations` launches of the fused step.  A step reads its
-neighbours' flow, so it cannot write in place; the loop ping-pongs
-between two buffers allocated once per level, and never writes the
-caller's flow.
+`:146-272`) and the unfused Pallas loop of
+`optical_flow_tpu/models/farneback/flow.py:316-342` (K5a, then K5b, per
+iteration).  `update_flow` picks by `(winsize, gaussian)` alone: the box
+window goes to K1 while K1's tile fits (`k1_fits`, winsize <= 61), the
+Gaussian window and larger boxes to K5a -> K5b.  Buffers are allocated
+once per level and the caller's flow is never written.
 """
 
 from __future__ import annotations
@@ -12,16 +14,49 @@ from __future__ import annotations
 import torch
 
 from optical_flow_tpu_torch.kernels import on_cuda
-from optical_flow_tpu_torch.kernels.update_gather import update_blur
+from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
+from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, update_blur,
+                                                          update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
 
 
 def update_flow_fused(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                       winsize: int, iterations: int) -> torch.Tensor:
-    """One pyramid level's iterations: flow (B, 2, H, W) -> new flow."""
+    """`iterations` K1 steps (box window): flow (B, 2, H, W) -> new flow.
+    A step reads its neighbours' flow, so it cannot write in place; the
+    loop ping-pongs between two buffers."""
     if not on_cuda(flow):
         return core.update_flow(R0, R1, flow, winsize, iterations)
     bufs = (torch.empty_like(flow), torch.empty_like(flow))
     for i in range(iterations):
         flow = update_blur(R0, R1, flow, winsize, out=bufs[i % 2])
     return flow
+
+
+def update_flow_unfused(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                        winsize: int, iterations: int,
+                        gaussian: bool = False) -> torch.Tensor:
+    """`iterations` K5a -> K5b steps, box or Gaussian window.  K5b reads
+    only M, and K5a has read the flow before K5b writes it (one stream),
+    so one M buffer and one flow buffer serve every iteration."""
+    if not on_cuda(flow):
+        return core.update_flow(R0, R1, flow, winsize, iterations, gaussian)
+    M = torch.empty(R0.shape, dtype=torch.float32, device=flow.device)
+    new = torch.empty_like(flow)
+    for _ in range(iterations):
+        flow = blur_solve(update_matrices(R0, R1, flow, out=M), winsize,
+                          gaussian, out=new)
+    return flow
+
+
+def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                winsize: int, iterations: int,
+                gaussian: bool = False) -> torch.Tensor:
+    """One pyramid level's iterations: flow (B, 2, H, W) -> new flow, on
+    K1 for a box window that fits its tile, else on K5a -> K5b; a CPU
+    tensor runs the plain loop."""
+    if not on_cuda(flow):
+        return core.update_flow(R0, R1, flow, winsize, iterations, gaussian)
+    if not gaussian and k1_fits(winsize):
+        return update_flow_fused(R0, R1, flow, winsize, iterations)
+    return update_flow_unfused(R0, R1, flow, winsize, iterations, gaussian)

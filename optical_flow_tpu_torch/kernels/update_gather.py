@@ -1,18 +1,26 @@
-"""K1: one fused Farnebäck iterate step (`csrc/update_blur.cu`).
+"""K1: one fused Farnebäck iterate step (`csrc/update_blur.cu`), and K5a:
+the update matrices alone (`csrc/update_matrices.cu`).
 
-Replaces `optical_flow_tpu/pallas/update_gather.py` (`fused_update_blur_store`,
-`:956`): displaced fetch of R1 -> M = (G11, G12, G22, h1, h2) with border
-weights -> winsize^2 box sum with replicate borders -> 2x2 solve, in one
-launch.  The TPU kernel's candidate blocks, anchors and spill tiers exist
-because the TPU has no fast gather; on the card the fetch is a plain
-clamped load, exact by construction, so none of that is ported.
+K1 replaces `optical_flow_tpu/pallas/update_gather.py`
+(`fused_update_blur_store`, `:956`): displaced fetch of R1 -> M = (G11,
+G12, G22, h1, h2) with border weights -> winsize^2 box sum with replicate
+borders -> 2x2 solve, in one launch.  The TPU kernel's candidate blocks,
+anchors and spill tiers exist because the TPU has no fast gather; on the
+card the fetch is a plain clamped load, exact by construction, so none of
+that is ported.
 
 Its floor on the card is device-memory traffic, 56 B/px per step (R0 and
 the flow read, the R1 gather, the new flow written), because M never
 leaves shared memory: a block builds M for its 32x32 output tile plus the
 (winsize - 1) halo, sums it and solves.  That costs 2.1 M evaluations per
 output pixel at winsize 15, arithmetic and shared-memory traffic that
-keep this first version above the traffic floor (PERF.md).
+keep this first version above the traffic floor (PERF.md).  The tile
+bounds the window: `k1_fits`.
+
+K5a replaces `update_matrices_pallas_batched_stats` (`:1851`, with its
+column-chunked build `:1714` for wide frames and the store-layout entry
+`:2007`): the same M, one thread per pixel, written to device memory for
+K5b (`kernels/blur_solve.py`), at any width.
 """
 
 from __future__ import annotations
@@ -24,14 +32,21 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, raise_on_error)
+                                            on_cuda, output, raise_on_error)
 from optical_flow_tpu_torch.models.farneback import core
 
-_TILE = 32  # output tile side, as TX and TY in the kernel
+_TILE = 32  # output tile side, as TX and TY in update_blur.cu
+
+
+def k1_fits(winsize: int) -> bool:
+    """Whether K1's shared memory (M on the tile plus its halo, and the
+    row sums) fits one block: winsize <= 61."""
+    m = winsize // 2
+    return 4 * 5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _k1():
     f = _build.library("update_blur").oft_update_blur
     p, i = ctypes.c_void_p, ctypes.c_int
     f.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
@@ -39,40 +54,69 @@ def _kernel():
     return f
 
 
+@functools.lru_cache(maxsize=None)
+def _k5a():
+    f = _build.library("update_matrices").oft_update_matrices
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p, p, p, p, i, i, i, i, p]
+    f.restype = i
+    return f
+
+
+def _check_operands(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor):
+    """(B, H, W) of a step's CUDA operands, or raise."""
+    dev = flow.device
+    check(flow, "flow", dev, (torch.float32,), 4)
+    B, two, h, w = flow.shape
+    if two != 2:
+        raise ValueError(f"flow has shape {tuple(flow.shape)}, expected (B, 2, H, W)")
+    for name, t in (("R0", R0), ("R1", R1)):
+        check(t, name, dev, (torch.float32,), 4)
+        if t.shape != (B, 5, h, w):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, 5, h, w)}")
+    return B, h, w
+
+
 def update_blur(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                 winsize: int, out: torch.Tensor | None = None) -> torch.Tensor:
-    """One iterate step: R0, R1 (B, 5, H, W), flow (B, 2, H, W) f32 ->
+    """K1, one iterate step: R0, R1 (B, 5, H, W), flow (B, 2, H, W) f32 ->
     new flow (B, 2, H, W) f32, written to `out` when given (CUDA only;
     it must not be `flow`, whose neighbours the step still reads)."""
     if not on_cuda(flow):
         if out is not None:
             raise ValueError("out= is for CUDA tensors")
         return core.update_step(R0, R1, flow, winsize)
-    dev = flow.device
-    check(flow, "flow", dev, (torch.float32,), 4)
-    B, two, h, w = flow.shape
-    for name, t in (("R0", R0), ("R1", R1)):
-        check(t, name, dev, (torch.float32,), 4)
-        if t.shape != (B, 5, h, w):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, 5, h, w)}")
-    if two != 2:
-        raise ValueError(f"flow has shape {tuple(flow.shape)}, expected (B, 2, H, W)")
-    m = winsize // 2
-    if 4 * 5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) > MAX_SMEM:
-        raise ValueError(f"winsize {winsize} is too large for the kernel's tile")
-    if out is None:
-        out = torch.empty_like(flow)
-    else:
-        check(out, "out", dev, (torch.float32,), 4)
-        if out.shape != flow.shape:
-            raise ValueError(f"out has shape {tuple(out.shape)}, expected {tuple(flow.shape)}")
-        if out.data_ptr() == flow.data_ptr():
-            raise ValueError("out must be a buffer distinct from flow")
+    B, h, w = _check_operands(R0, R1, flow)
+    if not k1_fits(winsize):
+        raise ValueError(f"winsize {winsize} is too large for the kernel's tile "
+                         "(update_matrices + blur_solve take any winsize)")
+    out = output(out, flow.shape, flow.device, flow)
     if flow.numel() == 0:
         return out
-    rc = _kernel()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                   B, h, w, m, float(np.float32(1.0 / (winsize * winsize))),
-                   dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    dev = flow.device
+    rc = _k1()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
+               B, h, w, winsize // 2, float(np.float32(1.0 / (winsize * winsize))),
+               dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "update_blur")
     LAUNCHES["K1"] += 1
+    return out
+
+
+def update_matrices(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5a: R0, R1 (B, 5, H, W), flow (B, 2, H, W) f32 -> M (B, 5, H, W)
+    f32, written to `out` when given (CUDA only; not an input's buffer)."""
+    if not on_cuda(flow):
+        if out is not None:
+            raise ValueError("out= is for CUDA tensors")
+        return core.update_matrices(R0, R1, flow)
+    B, h, w = _check_operands(R0, R1, flow)
+    out = output(out, (B, 5, h, w), flow.device, R0, R1, flow)
+    if out.numel() == 0:
+        return out
+    dev = flow.device
+    rc = _k5a()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                B, h, w, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "update_matrices")
+    LAUNCHES["K5a"] += 1
     return out

@@ -204,6 +204,41 @@ def box_sum_replicate(M: torch.Tensor, ksize: int) -> torch.Tensor:
     return along(-2, along(-1, M))
 
 
+def gaussian_window_kernel(winsize: int) -> np.ndarray:
+    """Separable window for OPTFLOW_FARNEBACK_GAUSSIAN (f32 taps), as the
+    JAX package computes it: 2 * (winsize // 2) + 1 taps, sigma 0.3 * m.
+
+    winsize 1 gives sigma 0, where the JAX formula divides 0 by 0 and its
+    flow is NaN everywhere (cv2's window there is the single tap 1); the
+    port raises instead of returning NaN."""
+    m = winsize // 2
+    if m == 0:
+        raise ValueError(
+            f"the Gaussian window needs winsize >= 2, got {winsize}: the "
+            "reference's formula has sigma 0 there and returns NaN flow")
+    sigma = m * 0.3
+    i = np.arange(-m, m + 1, dtype=np.float64)
+    k = np.exp(-(i * i) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_sum_replicate(M: torch.Tensor, winsize: int) -> torch.Tensor:
+    """Separable Gaussian-weighted window sum with replicate borders: the
+    horizontal pass first, then the vertical, each t0*p0 + t1*p1 + ...
+    (the JAX `_corr1d(_corr1d(M, k, axis=-1), k, axis=-2)`)."""
+    k = gaussian_window_kernel(winsize)
+    return _corr1d(_corr1d(M, k, dim=-1), k, dim=-2)
+
+
+def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool) -> torch.Tensor:
+    """Window sum of M (box, or Gaussian with `gaussian`), then the 2x2
+    solve: M (..., 5, H, W) -> flow (..., 2, H, W).  Plain version of the
+    `blur_solve` kernel (K5b)."""
+    if gaussian:
+        return solve_flow(gaussian_sum_replicate(M, winsize), 1.0)
+    return solve_flow(box_sum_replicate(M, winsize), 1.0 / (winsize * winsize))
+
+
 def solve_flow(Mb: torch.Tensor, inv_area: float) -> torch.Tensor:
     """Per-pixel 2x2 solve: blurred M (..., 5, H, W) -> flow (..., 2, H, W).
 
@@ -224,15 +259,15 @@ def solve_flow(Mb: torch.Tensor, inv_area: float) -> torch.Tensor:
 def update_step(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                 winsize: int) -> torch.Tensor:
     """One iterate step, M -> box sum -> solve.  Plain version of the
-    `update_blur` kernel."""
-    M = update_matrices(R0, R1, flow)
-    return solve_flow(box_sum_replicate(M, winsize),
-                      1.0 / (winsize * winsize))
+    `update_blur` kernel (K1)."""
+    return blur_solve(update_matrices(R0, R1, flow), winsize, False)
 
 
 def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
-                winsize: int, iterations: int) -> torch.Tensor:
-    """One pyramid level's iterate loop with the box window."""
+                winsize: int, iterations: int,
+                gaussian: bool = False) -> torch.Tensor:
+    """One pyramid level's iterate loop, M -> window sum -> solve, with
+    the box window or, with `gaussian`, the Gaussian one."""
     for _ in range(iterations):
-        flow = update_step(R0, R1, flow, winsize)
+        flow = blur_solve(update_matrices(R0, R1, flow), winsize, gaussian)
     return flow

@@ -1,15 +1,19 @@
-"""Farnebäck dense optical flow: the batched entry points of the port.
+"""Farnebäck dense optical flow: the entry points of the port.
 
 Port of `optical_flow_tpu.models.farneback.flow` (`_flow_pyramid`,
-`calc_flow_batched`, `calc_flow_chain_batched`, `calc_flow_bgr_batched`,
-`calc_flow_bgr_chain_batched`) with no initial flow and the box window.
-Every level runs the same three stages on the tensors' device: K3
-`gauss_resize` builds the level from the full-resolution frame (levels
-k > 0), K2 `poly_exp` expands the frames (with the 3-tap pre-smooth at
-level 0), and the K1 loop iterates the flow.  Between levels the flow is
-upsampled x2 in plain PyTorch.  The BGR entries end with K4
-`flow_to_bgr_planar`.  CUDA tensors go through the kernels, CPU tensors
-through their plain versions; there is no shape gate.
+`calc_flow`, `calc_flow_batched`, `calc_flow_chain_batched`,
+`calc_flow_bgr_batched`, `calc_flow_bgr_chain_batched`), every flag of
+cv2's contract: the box or Gaussian window (OPTFLOW_FARNEBACK_GAUSSIAN)
+and the seeded start (OPTFLOW_USE_INITIAL_FLOW).  Every level runs the
+same three stages on the tensors' device: K3 `gauss_resize` builds the
+level from the full-resolution frame (levels k > 0), K2 `poly_exp`
+expands the frames (with the 3-tap pre-smooth at level 0), and
+`fused_iterate.update_flow` iterates the flow, on K1 for a box window
+that fits its tile and on K5a -> K5b otherwise.  Between levels the flow
+is upsampled x2 in plain PyTorch; a seed is downsampled to the coarsest
+level with INTER_AREA (`ops/resize.py:resize_area_f32`).  The BGR entries
+end with K4 `flow_to_bgr_planar`.  CUDA tensors go through the kernels,
+CPU tensors through their plain versions; there is no shape gate.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
-from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
+from optical_flow_tpu_torch.kernels.fused_iterate import update_flow
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.models.farneback import core
@@ -26,12 +30,14 @@ from optical_flow_tpu_torch.models.farneback.params import (FarnebackPlan,
                                                             build_plan,
                                                             gaussian_kernel)
 from optical_flow_tpu_torch.ops import colorize
-from optical_flow_tpu_torch.ops.resize import resize_bilinear_f32
+from optical_flow_tpu_torch.ops.resize import (resize_area_f32,
+                                               resize_bilinear_f32)
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
 
 def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
-                  chain: bool) -> torch.Tensor:
+                  chain: bool, initial_flow: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """Coarse-to-fine schedule on an (N, H, W) uint8/f32 frame batch.
 
     chain=False: the batch holds the B first frames, then the B second
@@ -39,14 +45,16 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
     that of the N-1 pairs (i, i+1); each frame is resized and expanded
     once, and R[:-1] / R[1:] (contiguous views) are the iterate's
     operands.  Returns (B, 2, H, W) f32 with B = N // 2 or N - 1.
-    plain=True runs the kernels' plain versions on any device."""
+    initial_flow: an optional (B, 2, H, W) f32 seed on the frames' device
+    (OPTFLOW_USE_INITIAL_FLOW): the coarsest level starts from its
+    INTER_AREA downsample scaled to the level, as cv2 does.  plain=True
+    runs the kernels' plain versions on any device."""
     cfg = plan.config
     if plain:
         level_fn, poly_fn, iterate_fn = (core.gaussian_blur_resize,
                                          core.poly_exp, core.update_flow)
     else:
-        level_fn, poly_fn, iterate_fn = (gauss_resize, poly_exp,
-                                         update_flow_fused)
+        level_fn, poly_fn, iterate_fn = (gauss_resize, poly_exp, update_flow)
     B = frames.shape[0] - 1 if chain else frames.shape[0] // 2
     flow = None
     for lv in plan.levels:
@@ -58,14 +66,18 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
             R = poly_fn(imgs, cfg.poly_n, cfg.poly_sigma)
         else:
             R = poly_fn(frames, cfg.poly_n, cfg.poly_sigma, pre_taps=kern)
-        if flow is None:
+        if flow is None and initial_flow is not None:
+            scale = float(np.float32(cfg.pyr_scale ** lv.k))
+            flow = resize_area_f32(initial_flow, lv.width, lv.height) * scale
+        elif flow is None:
             flow = torch.zeros((B, 2, lv.height, lv.width),
                                dtype=torch.float32, device=frames.device)
         else:
             flow = resize_bilinear_f32(flow, lv.width, lv.height)
             flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
         R0, R1 = (R[:-1], R[1:]) if chain else (R[:B], R[B:])
-        flow = iterate_fn(R0, R1, flow, cfg.winsize, cfg.iterations)
+        flow = iterate_fn(R0, R1, flow, cfg.winsize, cfg.iterations,
+                          cfg.gaussian_window)
     return flow
 
 
@@ -98,13 +110,29 @@ def _chain_batch(frames, device) -> torch.Tensor:
     return _on_device(frames, device)
 
 
+def _seed(initial_flow, config: FarnebackConfig, B: int, h: int, w: int,
+          device) -> torch.Tensor | None:
+    """The (B, H, W, 2) seed as a (B, 2, H, W) f32 tensor on `device`, when
+    the flags ask for one (JAX `flow.py:532-536`); None otherwise."""
+    if not config.use_initial_flow:
+        return None
+    if initial_flow is None:
+        raise ValueError(
+            "flags include OPTFLOW_USE_INITIAL_FLOW but no initial_flow "
+            "was provided")
+    seed = torch.as_tensor(initial_flow)
+    if tuple(seed.shape) != (B, h, w, 2):
+        raise ValueError(f"initial_flow has shape {tuple(seed.shape)}, "
+                         f"expected {(B, h, w, 2)}")
+    return seed.to(device, torch.float32).movedim(-1, 1).contiguous()
+
+
 def _flow(frames: torch.Tensor, config: FarnebackConfig, plain: bool,
-          chain: bool) -> torch.Tensor:
-    if config.use_initial_flow or config.gaussian_window:
-        raise NotImplementedError(
-            "the port runs flags=0 only: no initial flow, box window")
+          chain: bool, seed: torch.Tensor | None = None) -> torch.Tensor:
+    """Only calc_flow_batched passes a seed: the chain and BGR entries
+    start from zero flow under every flag, as in the JAX package."""
     _, h, w = frames.shape
-    return _flow_pyramid(frames, build_plan(h, w, config), plain, chain)
+    return _flow_pyramid(frames, build_plan(h, w, config), plain, chain, seed)
 
 
 def _bgr(flow: torch.Tensor, plain: bool) -> torch.Tensor:
@@ -112,11 +140,27 @@ def _bgr(flow: torch.Tensor, plain: bool) -> torch.Tensor:
             else flow_to_bgr_planar(flow))
 
 
+def calc_flow(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
+              initial_flow=None) -> torch.Tensor:
+    """Dense Farnebäck flow for one frame pair, cv2's contract: (H, W)
+    uint8 or float frames -> (H, W, 2) f32 flow, on the device of `prev`.
+    initial_flow: an (H, W, 2) seed, used when config.flags has
+    OPTFLOW_USE_INITIAL_FLOW."""
+    prev, nxt = torch.as_tensor(prev), torch.as_tensor(nxt)
+    if prev.dim() != 2:
+        raise ValueError(f"expected (H, W) grayscale, got {tuple(prev.shape)}")
+    seed = None if initial_flow is None else torch.as_tensor(initial_flow)[None]
+    return calc_flow_batched(prev[None], nxt[None], config, seed)[0]
+
+
 def calc_flow_batched(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
-                      *, device=None, plain: bool = False) -> torch.Tensor:
+                      initial_flow=None, *, device=None,
+                      plain: bool = False) -> torch.Tensor:
     """Dense Farnebäck flow for a batch of frame pairs.
 
     prev, nxt: (B, H, W) uint8 or float frames, numpy arrays or tensors.
+    initial_flow: a (B, H, W, 2) seed, numpy or tensor, required when
+    config.flags has OPTFLOW_USE_INITIAL_FLOW and ignored otherwise.
     device: where to run; by default the device of `prev`.  uint8 frames
     are uploaded as uint8 and cast on the device.  Returns (B, H, W, 2)
     f32 flow (x-displacement, y-displacement), a view of the planar
@@ -125,7 +169,9 @@ def calc_flow_batched(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
     is held to on the card.
     """
     both = _pair_batch(prev, nxt, device)
-    return _flow(both, config, plain, chain=False).movedim(1, -1)
+    B, h, w = both.shape[0] // 2, both.shape[1], both.shape[2]
+    seed = _seed(initial_flow, config, B, h, w, both.device)
+    return _flow(both, config, plain, chain=False, seed=seed).movedim(1, -1)
 
 
 def calc_flow_chain_batched(frames, config: FarnebackConfig = FarnebackConfig(),

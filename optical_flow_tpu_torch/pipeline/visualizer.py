@@ -12,7 +12,10 @@ Behavioral contract:
     resolution;
   * `flow_<ms>.jpeg` + `source_<ms>.jpeg` with `ms = int(ts/fps*1000)`,
     from the SECOND sampled timestamp on (`:29-31,57-60`); each source
-    image is written as its frame arrives.
+    image is written as its frame arrives;
+  * `validate=True` keeps the first grey pair and, after the shot, logs
+    its mean EPE against cv2 and records it as the metrics counter
+    `validate_mean_epe` (`utils/validate.py`).
 
 Sampled frames stream through the decode-ahead threads, which also convert
 them to gray; `visualize_frames` runs the chained pyramid and K4 on the
@@ -142,9 +145,6 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
                    config: Optional[VisualizerConfig] = None) -> int:
     """Write flow/source JPEG pairs for one shot.  Returns #pairs written."""
     config = config or VisualizerConfig()
-    if config.validate:
-        raise NotImplementedError(
-            "validate=True needs utils/validate, which is not ported yet")
     os.makedirs(images_path, exist_ok=True)
 
     vid = VideoReader(v_path)
@@ -176,6 +176,7 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
                                 transform=lambda f: (f, bgr2gray_host(f)))
     pool = ThreadPoolExecutor(max_workers=4)
     encodes = []
+    validate_sample = []          # the first grey pair, host copies
 
     def path_of(kind: str, pos: float) -> str:
         return os.path.join(images_path, f"{kind}_{int(pos / fps * 1000)}.jpeg")
@@ -185,6 +186,8 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
             if item is None:
                 return
             frame, gray = item
+            if config.validate and i < 2:
+                validate_sample.append(np.asarray(gray))
             if i >= 1:
                 # the source image is written on arrival (bounded memory)
                 encodes.append(pool.submit(write_jpeg_bgr, path_of("source", pos),
@@ -205,5 +208,13 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
                 f.result()                  # surface encode errors
     finally:
         pool.shutdown()
+    if len(validate_sample) == 2:
+        from optical_flow_tpu_torch.utils.validate import (log_validation,
+                                                           sampled_epe)
+        epe = sampled_epe(validate_sample[0], validate_sample[1],
+                          config.farneback, device=device)
+        log_validation(epe, f"visualize:{os.path.basename(v_path)}")
+        if epe is not None:
+            metrics.counters["validate_mean_epe"] = epe
     metrics.log_summary()
     return written

@@ -59,7 +59,7 @@ class VisualizerConfig:
 
     step_size: int = 300          # milliseconds, module constant STEP_SIZE
     jpeg_quality: int = 95        # cv2.imwrite default
-    validate: bool = False        # sampled EPE against cv2: not ported yet
+    validate: bool = False        # log one sampled pair's EPE against cv2
     farneback: FarnebackConfig = dataclasses.field(default_factory=FarnebackConfig)
 
 

@@ -22,11 +22,15 @@ from optical_flow_tpu.oracle.synthetic import smooth_texture_pair
 from optical_flow_tpu.ops import polar as jpolar
 from optical_flow_tpu.ops import resize as jresize
 from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
-from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
+from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
+                                                          update_flow_fused,
+                                                          update_flow_unfused)
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
-from optical_flow_tpu_torch.kernels.update_gather import update_blur
+from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+                                                          update_matrices)
 from optical_flow_tpu_torch.models.farneback import core as tcore
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
 from optical_flow_tpu_torch.ops import colorize
@@ -182,4 +186,68 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(update_flow_fused(R0, R1, flow, 15, 3),
                        tcore.update_flow(R0, R1, flow, 15, 3))
     assert torch.equal(flow_to_bgr_planar(flow), colorize.flow_to_bgr_planar(flow))
-    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    M = tcore.update_matrices(R0, R1, flow)
+    assert torch.equal(update_matrices(R0, R1, flow), M)
+    for gaussian in (False, True):
+        assert torch.equal(blur_solve(M, 15, gaussian), tcore.blur_solve(M, 15, gaussian))
+        ref = tcore.update_flow(R0, R1, flow, 63, 2, gaussian)
+        assert torch.equal(update_flow(R0, R1, flow, 63, 2, gaussian), ref)
+        assert torch.equal(update_flow_unfused(R0, R1, flow, 63, 2, gaussian), ref)
+    with pytest.raises(ValueError):
+        update_matrices(R0, R1, flow, out=M)          # out= is for CUDA tensors
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                "K5a": 0, "K5b": 0}
+
+
+def _jax_gauss_sum(M, winsize):
+    k = jcore.gaussian_window_kernel(winsize)
+    return jcore._corr1d(jcore._corr1d(jnp.asarray(M.numpy()), k, axis=-1), k, axis=-2)
+
+
+@pytest.mark.parametrize("winsize", [3, 10, 15, 21])
+def test_gaussian_window_sum_and_solve_match_jax(winsize):
+    """The K5b oracle with the Gaussian window: the separable sum (the
+    horizontal pass first, as JAX's `core.update_flow` does it), then the
+    solve with scale 1."""
+    R0, R1, flow = _texture_R(41, 67)
+    M = tcore.update_matrices(R0, R1, flow)
+    _close(tcore.gaussian_sum_replicate(M, winsize), _jax_gauss_sum(M, winsize))
+    _close(tcore.blur_solve(M, winsize, True),
+           jcore.solve_flow(_jax_gauss_sum(M, winsize), 1.0))
+
+
+@pytest.mark.parametrize("winsize", [3, 10, 15, 21, 63])
+def test_blur_solve_box_matches_jax(winsize):
+    R0, R1, flow = _texture_R(41, 67)
+    M = tcore.update_matrices(R0, R1, flow)
+    ref = jcore.solve_flow(jcore.box_sum_replicate(jnp.asarray(M.numpy()), winsize),
+                           1.0 / (winsize * winsize))
+    _close(tcore.blur_solve(M, winsize, False), ref)
+
+
+@pytest.mark.parametrize("winsize", [3, 10, 15, 21])
+def test_update_flow_gaussian_matches_jax(winsize):
+    """A 3-iteration level with the Gaussian window against JAX's
+    `core.update_flow(..., gaussian=True)`."""
+    R0, R1, flow = _texture_R(41, 67)
+    j = [jnp.asarray(t.numpy()) for t in (R0, R1, flow)]
+    ref = jcore.update_flow(*j, winsize, 3, gaussian=True)
+    _close(tcore.update_flow(R0, R1, flow, winsize, 3, gaussian=True), ref)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((107, 193), (54, 97)), ((107, 193), (27, 48)), ((107, 193), (11, 20)),
+    ((107, 193), (400, 30)),      # mixed: rows up (bilinear), columns down
+    ((36, 64), (72, 129)),        # up on both axes: the bilinear resize
+    ((72, 129), (72, 129))])
+def test_resize_area_f32_matches_jax(src, dst):
+    """The seed's INTER_AREA downsample: down, up and mixed, (h, w)."""
+    x = (np.random.default_rng(5).standard_normal((2, 2) + src) * 4).astype(np.float32)
+    dh, dw = dst
+    got = tresize.resize_area_f32(torch.as_tensor(x), dw, dh)
+    assert got.shape == (2, 2, dh, dw) and got.dtype == torch.float32
+    _close(got, jresize.resize_area_f32(jnp.asarray(x), dw, dh), atol=1e-5, rtol=0)
+    for s, d in ((src[0], dh), (src[1], dw)):
+        ref = jresize._area_weights(s, d)
+        if ref is not None:
+            np.testing.assert_array_equal(tresize._area_weights(s, d), ref)

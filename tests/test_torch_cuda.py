@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at shapes and
 options that chip_smoke.py does not reach: frames smaller than a tile,
 odd dims, float32 input, other window and expansion sizes, the wrappers'
-input checks, the main path against the plain path on the CPU, and the
-visualizer's chained pyramid and K4 colorization.
+input checks, the main path against the plain path on the CPU, the
+visualizer's chained pyramid and K4 colorization, and the unfused iterate
+(K5a -> K5b) with the box and the Gaussian window, the box window beyond
+K1's tile, and the seeded entry.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -10,8 +12,10 @@ without the conftest, from the repo root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances are chip_smoke.py's: K2 and K3 atol=1e-4, rtol=1e-5, K1 one
-step atol=1e-3, rtol=1e-3 (the repo's Pallas-vs-XLA tolerances); the
+Tolerances are chip_smoke.py's: K2, K3 and K5a atol=1e-4, rtol=1e-5, K1
+and K5b one step atol=1e-3, rtol=1e-3 (the repo's Pallas-vs-XLA
+tolerances); K5a -> K5b with the box window equals K1 to the bit (same
+arithmetic, same sum order); the
 kernels are built with --fmad=false and follow their plain versions op
 for op, so they agree to the bit in practice.  Whole-path flow uses the
 share gate of chip_smoke.py (rare rint flips at .5 boundaries).  K4 is
@@ -25,14 +29,19 @@ import pytest
 import torch
 
 from optical_flow_tpu_torch import kernels
+from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
-from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
+from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
+                                                          update_flow_fused,
+                                                          update_flow_unfused)
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
-from optical_flow_tpu_torch.kernels.update_gather import update_blur
+from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+                                                          update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.flow import (
-    calc_flow_batched, calc_flow_bgr_chain_batched, calc_flow_chain_batched)
+    calc_flow, calc_flow_batched, calc_flow_bgr_chain_batched,
+    calc_flow_chain_batched)
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
 from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.oracle.synthetic import (motion_boundary_pair,
@@ -156,7 +165,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flow_to_bgr_planar(flow[:, :, :, ::2])                    # not contiguous
     with pytest.raises(ValueError):
         flow_to_bgr_planar(flow.to("meta"))                       # device
-    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    with pytest.raises(ValueError):
+        update_blur(R, R, flow, 63)                               # beyond K1's tile
+    with pytest.raises(ValueError):
+        update_matrices(R, R, flow, out=R)                        # in place
+    with pytest.raises(ValueError):
+        update_matrices(R, R, flow[:, :1].contiguous())           # 1 flow channel
+    with pytest.raises(ValueError):
+        blur_solve(R[:, :4].contiguous(), 15, False)              # 4 channels
+    with pytest.raises(ValueError):
+        blur_solve(R, 1, True)                                    # Gaussian winsize 1
+    with pytest.raises(TypeError):
+        blur_solve(R.double(), 15, True)
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                "K5a": 0, "K5b": 0}
 
 
 @pytest.mark.parametrize("pair", ["smooth", "boundary"])
@@ -172,7 +194,7 @@ def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
     assert got.is_cuda and got.shape == (2, h, w, 2)
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
-                                "K3": n_levels - 1, "K4": 0}
+                                "K3": n_levels - 1, "K4": 0, "K5a": 0, "K5b": 0}
     ref = calc_flow_batched(prev, nxt)
     d = (got.cpu() - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
@@ -228,8 +250,120 @@ def test_chain_on_the_card(dev, h, w):
     bgr = calc_flow_bgr_chain_batched(got)
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
-                                "K3": n_levels - 1, "K4": 1}
+                                "K3": n_levels - 1, "K4": 1, "K5a": 0, "K5b": 0}
     ref = calc_flow_bgr_chain_batched(frames).numpy()
     d = np.abs(bgr.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
     assert (d > 0).mean() <= 1e-3
+
+
+WINSIZES = [1, 3, 10, 15, 21, 63]
+
+
+def _step_operands(dev, h, w):
+    """R of a texture pair (B=2) and a random flow of up to 6 px."""
+    f1, f2 = smooth_texture_pair(h, w, (1, 2))
+    R = core.poly_exp(torch.as_tensor(np.stack([f1, f1, f2, f2])).to(dev), 5, 1.2)
+    flow = (torch.as_tensor(np.random.default_rng(2).random((2, 2, h, w)),
+                            dtype=torch.float32) - 0.5).to(dev) * 12.0
+    return R[:2].contiguous(), R[2:].contiguous(), flow
+
+
+def _share_close(got, ref):
+    """The share gate of chip_smoke.py's whole-path checks."""
+    d = (got.cpu() - ref.cpu()).abs()
+    assert float((d <= 2e-3 + 1e-3 * ref.cpu().abs()).float().mean()) >= 0.999
+    assert float(d.mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (72, 129)])
+def test_update_matrices_kernel(dev, h, w):
+    R0, R1, flow = _step_operands(dev, h, w)
+    got = update_matrices(R0, R1, flow)
+    assert got.shape == (2, 5, h, w)
+    _close(got, core.update_matrices(R0, R1, flow), STENCIL_TOL)
+    assert kernels.LAUNCHES["K5a"] == 1
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("winsize", WINSIZES)
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (72, 129)])
+def test_blur_solve_kernel(dev, h, w, winsize, gaussian):
+    """One K5b launch, then a 3-step K5a -> K5b level loop, against the
+    plain versions; winsize 63 is beyond K1's tile."""
+    R0, R1, flow = _step_operands(dev, h, w)
+    M = core.update_matrices(R0, R1, flow)
+    if gaussian and winsize == 1:
+        with pytest.raises(ValueError):      # the reference's sigma-0 window
+            blur_solve(M, winsize, gaussian)
+        assert kernels.LAUNCHES["K5b"] == 0
+        return
+    _close(blur_solve(M, winsize, gaussian), core.blur_solve(M, winsize, gaussian),
+           STEP_TOL)
+    kept = flow.clone()
+    _close(update_flow_unfused(R0, R1, flow, winsize, 3, gaussian),
+           core.update_flow(R0, R1, flow, winsize, 3, gaussian), STEP_TOL)
+    assert torch.equal(flow, kept)            # the caller's flow is not written
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                "K5a": 3, "K5b": 4}
+
+
+@pytest.mark.parametrize("winsize", [1, 3, 10, 15, 21, 61])
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (72, 129)])
+def test_unfused_box_step_equals_k1(dev, h, w, winsize):
+    """K5a -> K5b with the box window is K1's arithmetic in K1's order:
+    equal to the bit, one step and a 3-step level."""
+    R0, R1, flow = _step_operands(dev, h, w)
+    got = blur_solve(update_matrices(R0, R1, flow), winsize, False)
+    ref = update_blur(R0, R1, flow, winsize)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(update_flow_unfused(R0, R1, flow, winsize, 3),
+                       update_flow_fused(R0, R1, flow, winsize, 3))
+
+
+def test_update_flow_picks_by_window(dev):
+    R0, R1, flow = _step_operands(dev, 37, 53)
+    for winsize, gaussian, path in ((15, False, "K1"), (61, False, "K1"),
+                                    (63, False, "K5b"), (15, True, "K5b"),
+                                    (3, True, "K5b")):
+        kernels.reset_launches()
+        update_flow(R0, R1, flow, winsize, 2, gaussian)
+        assert kernels.LAUNCHES[path] == 2, (winsize, gaussian)
+        assert kernels.LAUNCHES["K5a"] == (2 if path == "K5b" else 0)
+
+
+@pytest.mark.parametrize("flags,winsize", [(0, 63), (256, 15), (256, 63),
+                                           (260, 10)])
+@pytest.mark.parametrize("h,w", [(96, 128), (72, 129)])
+def test_unfused_path_on_the_card_matches_the_cpu(dev, h, w, flags, winsize):
+    """calc_flow_batched through K5a -> K5b (a Gaussian window or a box
+    too large for K1's tile, winsize 63) against the plain path on the
+    CPU, with the launch counts of every level."""
+    f1, f2 = smooth_texture_pair(h, w, (2, 3))
+    prev, nxt = np.stack([f1, f2]), np.stack([f2, f1])
+    seed = (np.random.default_rng(3).standard_normal((2, h, w, 2)) * 2).astype(np.float32)
+    cfg = FarnebackConfig(winsize=winsize, flags=flags)
+    got = calc_flow_batched(prev, nxt, cfg, seed, device=dev)
+    n_levels = kernels.LAUNCHES["K2"]
+    assert kernels.LAUNCHES == {"K1": 0, "K2": n_levels, "K3": n_levels - 1,
+                                "K4": 0, "K5a": 3 * n_levels, "K5b": 3 * n_levels}
+    _share_close(got, calc_flow_batched(prev, nxt, cfg, seed))
+
+
+@pytest.mark.parametrize("flags", [4, 260])
+def test_calc_flow_on_the_card(dev, flags):
+    """The single-pair entry equals the batch's first pair, and the seeded
+    box path runs on K1 and matches the CPU."""
+    f1, f2 = smooth_texture_pair(72, 129, (2, 3))
+    seed = (np.random.default_rng(4).standard_normal((2, 72, 129, 2))
+            + (-3.0, -2.0)).astype(np.float32)
+    cfg = FarnebackConfig(flags=flags)
+    prev = torch.as_tensor(np.stack([f1, f2])).to(dev)
+    nxt = torch.as_tensor(np.stack([f2, f1])).to(dev)
+    batch = calc_flow_batched(prev, nxt, cfg, torch.as_tensor(seed).to(dev))
+    one = calc_flow(prev[0], nxt[0], cfg, seed[0])
+    torch.cuda.synchronize()
+    assert one.is_cuda and torch.equal(one, batch[0])
+    assert kernels.LAUNCHES["K1" if flags == 4 else "K5b"] > 0
+    _share_close(batch, calc_flow_batched(prev.cpu(), nxt.cpu(), cfg, seed))

@@ -24,12 +24,14 @@ _PROBE = textwrap.dedent("""
     from optical_flow_tpu_torch import kernels
     from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
-    from optical_flow_tpu_torch.kernels.update_gather import update_blur
-    from optical_flow_tpu_torch.kernels.fused_iterate import update_flow_fused
+    from optical_flow_tpu_torch.kernels.update_gather import update_blur, update_matrices
+    from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
+    from optical_flow_tpu_torch.kernels.fused_iterate import update_flow, update_flow_fused
     from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
     from optical_flow_tpu_torch.models.farneback.flow import (
-        calc_flow_batched, calc_flow_bgr_batched, calc_flow_bgr_chain_batched,
-        calc_flow_chain_batched)
+        calc_flow, calc_flow_batched, calc_flow_bgr_batched,
+        calc_flow_bgr_chain_batched, calc_flow_chain_batched)
+    from optical_flow_tpu_torch.utils.config import FarnebackConfig
     from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
     from optical_flow_tpu_torch.pipeline.visualizer import visualize_frames
     img = torch.zeros((2, 40, 64), dtype=torch.uint8)
@@ -39,7 +41,10 @@ _PROBE = textwrap.dedent("""
     flow = torch.zeros((1, 2, 20, 32))
     update_blur(R[:1], R[1:], flow, 15)
     update_flow_fused(R[:1], R[1:], flow, 15, 3)
+    blur_solve(update_matrices(R[:1], R[1:], flow), 15, True)
+    update_flow(R[:1], R[1:], flow, 63, 2, True)
     calc_flow_batched(img[:1], img[1:])
+    calc_flow(img[0], img[1], FarnebackConfig(flags=260), torch.zeros((40, 64, 2)))
     magnitude_sums(img[:1].numpy(), img[1:].numpy())
     flow_to_bgr_planar(torch.ones((2, 2, 20, 32)))
     calc_flow_chain_batched(img)
@@ -80,7 +85,7 @@ def test_port_imports_no_jax_and_no_cuda():
     assert r["jax"] == []
     assert r["jax_package"] == []
     assert r["cuda_initialized"] is False
-    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
 
 
 def test_no_jax_import_in_port_sources():

@@ -114,3 +114,24 @@ def test_motion_boundary_pair_byte_equal(h, w):
     for a, b in zip(tsyn.motion_boundary_pair(h, w),
                     jsyn.motion_boundary_pair(h, w)):
         assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("winsize", range(2, 32))
+def test_gaussian_window_kernel_matches_jax(winsize):
+    from optical_flow_tpu.models.farneback import core as jcore
+    from optical_flow_tpu_torch.models.farneback import core as tcore
+
+    t, j = tcore.gaussian_window_kernel(winsize), jcore.gaussian_window_kernel(winsize)
+    assert t.dtype == j.dtype == np.float32
+    assert t.tobytes() == j.tobytes()
+
+
+def test_gaussian_window_kernel_winsize_1_is_refused():
+    """The reference's sigma-0 window is NaN (0 / 0); the port raises."""
+    from optical_flow_tpu.models.farneback import core as jcore
+    from optical_flow_tpu_torch.models.farneback import core as tcore
+
+    with np.errstate(invalid="ignore"):
+        assert np.isnan(jcore.gaussian_window_kernel(1)).all()
+    with pytest.raises(ValueError, match="sigma 0"):
+        tcore.gaussian_window_kernel(1)

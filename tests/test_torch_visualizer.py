@@ -29,6 +29,7 @@ from optical_flow_tpu.oracle.synthetic import (motion_boundary_pair,
                                                write_synthetic_video)
 from optical_flow_tpu_torch.models.farneback import flow as tflow
 from optical_flow_tpu_torch.pipeline import visualizer
+from optical_flow_tpu.utils.config import FarnebackConfig as JaxConfig
 from optical_flow_tpu_torch.utils.config import FarnebackConfig, VisualizerConfig
 
 from test_torch_flow import assert_flow_close
@@ -86,10 +87,25 @@ def test_chain_entries_reject_like_jax():
             fn(frames[0])                              # (H, W)
         with pytest.raises(ValueError):
             fn(frames[:1])                             # one frame
-        with pytest.raises(NotImplementedError):
-            fn(frames, FarnebackConfig(flags=256))
     with pytest.raises(ValueError):
         tflow.calc_flow_bgr_batched(frames[:2], frames[1:])
+
+
+@pytest.mark.parametrize("flags", [256, 4])
+def test_chain_entries_take_the_flags_like_jax(flags):
+    """The Gaussian window runs through the chain; the chained pairs carry
+    no seed, so flags 4 starts from zero flow, as in the JAX package."""
+    frames = _chain_frames()
+    got = tflow.calc_flow_bgr_chain_batched(frames, FarnebackConfig(flags=flags)).numpy()
+    ref = np.asarray(jflow.calc_flow_bgr_chain_batched(
+        jnp.asarray(frames), JaxConfig(flags=flags)))
+    assert got.shape == ref.shape == (3, 3, 72, 129)
+    assert (got != ref).mean() <= 1e-3
+    chain = tflow.calc_flow_chain_batched(frames, FarnebackConfig(flags=flags))
+    assert_flow_close(chain.numpy(), jflow.calc_flow_chain_batched(
+        jnp.asarray(frames), JaxConfig(flags=flags)))
+    if flags == 4:
+        assert torch.equal(chain, tflow.calc_flow_chain_batched(frames))
 
 
 def _gray_sequence(n, h=40, w=56):
@@ -163,10 +179,57 @@ def test_visualize_shot_degenerate_inputs(clip, tmp_path):
     with pytest.raises(ValueError):       # 10 ms is shorter than a frame at 25 fps
         visualizer.visualize_shot(clip, str(out), *SHOT,
                                   config=VisualizerConfig(step_size=10))
-    with pytest.raises(NotImplementedError):
-        visualizer.visualize_shot(clip, str(out), *SHOT,
-                                  config=VisualizerConfig(validate=True))
     assert visualizer.visualize_shot(clip, str(out), 200, 300) == 0   # one sample
+
+
+def test_visualize_shot_validate_matches_jax(clip, tmp_path, monkeypatch):
+    """validate=True: the first grey pair's mean EPE against cv2, as the
+    `validate_mean_epe` counter, equal to the JAX visualizer's (both
+    flows against the same cv2 flow; None in both where cv2 is absent)."""
+    from optical_flow_tpu.pipeline import visualizer as jvis
+    from optical_flow_tpu_torch.utils import validate
+
+    counters = {}
+
+    def recording(module, key):
+        class Recording(module.PipelineMetrics):
+            def log_summary(self):
+                counters[key] = dict(self.counters)
+                super().log_summary()
+        monkeypatch.setattr(module, "PipelineMetrics", Recording)
+
+    recording(visualizer, "port")
+    recording(jvis, "jax")
+    cfg = VisualizerConfig(validate=True)
+    assert visualizer.visualize_shot(clip, str(tmp_path / "p"), *SHOT, config=cfg) == 4
+    from optical_flow_tpu.utils.config import VisualizerConfig as JaxVisualizerConfig
+    assert jvis.visualize_shot(clip, str(tmp_path / "j"), *SHOT,
+                               config=JaxVisualizerConfig(validate=True)) == 4
+    port, ref = (counters[k].get("validate_mean_epe") for k in ("port", "jax"))
+    assert (port is None) == (ref is None)
+    if port is not None:
+        assert abs(port - ref) <= 1e-3
+        assert port <= validate.EPE_GATE
+    assert counters["port"]["frame_pairs"] == 4
+
+
+def test_sampled_epe_without_cv2(monkeypatch):
+    import builtins
+
+    from optical_flow_tpu_torch.utils import validate
+
+    real = builtins.__import__
+
+    def no_cv2(name, *args, **kw):
+        if name == "cv2":
+            raise ImportError("no cv2")
+        return real(name, *args, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_cv2)
+    f1, f2 = smooth_texture_pair(40, 56, (1, 2))
+    assert validate.sampled_epe(f1, f2) is None
+    validate.log_validation(None, "t")
+    validate.log_validation(0.7, "t")
 
 
 def test_cli_parser_matches_jax(clip, tmp_path):
