@@ -5,26 +5,36 @@ Run from the repo root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile]
 
-It builds the six CUDA kernels from `optical_flow_tpu_torch/csrc/`
+It builds the seven CUDA kernels from `optical_flow_tpu_torch/csrc/`
 (one nvcc per source, in parallel) and holds each against its plain
-PyTorch version at the shapes of the 1080p B=16 paths (K5a and K5b also
-at one 4320x7680 level), and holds K5a -> K5b with the box window equal
-to K1 to the bit at every level.  Then it drives the extractor's path,
-`magnitude_sums` / `calc_flow_batched`, at 1080x1920 and at the
-extractor's 72x129, the visualizer's device loop
+PyTorch version at the shapes of the 1080p B=16 paths (K5a, K5b and K1,
+box and Gaussian, also at one 4320x7680 level; K6 at the two levels of a
+five-level 1080p pyramid that K3 does not take; K2 also at poly_n 11),
+and holds K5a -> K5b equal to K1 to the bit at every level, with the box
+window and, per iterate step on the pyramid's own flow, with the
+Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`).  Then it drives the
+extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
+and at the extractor's 72x129, the visualizer's device loop
 (`pipeline/visualizer.py:visualize_frames`: chained pyramid, K4 colorize,
 download) on 17 frames at 1080x1920 fed from memory, the Gaussian window
-(flags 256, K5a -> K5b on every level) and the seeded entry (flags 4,
-`calc_flow` and `calc_flow_batched` from a noisy true flow) at 1080x1920.
-Each path is checked against the plain path on the card, the true shift
-and the JAX package's golden numbers (`tests/data/torch_port_golden.json`),
-and both paths are timed.  --profile adds `profile_1080p`: the device
-time per kernel and the busy share of the 1080p flow call under flags 0,
-256 and 4 (torch.profiler).  One JSON line per phase; then the card's
-nvidia-smi line, the kernels summary and, last, {"ok": true, "device":
-{...}}.  Any failed check raises: the script then exits non-zero and
-prints no result.  It refuses to run without a CUDA card.  It imports no
-JAX.
+(flags 256), the seeded entry (flags 4, `calc_flow` and
+`calc_flow_batched` from a noisy true flow), a box window beyond K1's
+tile (winsize 63, K5a -> K5b) and a five-level pyramid (levels=5, K6 on
+L4 and L5) at 1080x1920, and bench.py's 8K row (4320x7680, B=1).  Each
+path is checked against the plain path on the card, the true shift and,
+where the file has it, the JAX package's golden numbers
+(`tests/data/torch_port_golden.json`), and both paths are timed.
+--profile adds `profile_1080p`, `profile_deep_1080p` and `profile_8k`:
+the device time per kernel and the busy share of the 1080p flow call
+under flags 0, 256 and 4 and with levels=5, and of the 8K pair
+(torch.profiler).
+One JSON line per phase; then the card's nvidia-smi line, the kernels
+summary (each kernel's launches on the paths, its error against its
+plain version, its time, its plain version's, the bound of its bytes or
+operations on an H100 SXM and, where one PyTorch call computes the same
+function, that call's time) and, last, {"ok": true, "device": {...}}.
+Any failed check raises: the script then exits non-zero and prints no
+result.  It refuses to run without a CUDA card.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -46,9 +56,14 @@ BATCH = 16
 CROP = 32
 WARMUP, TIMED, PROFILED = 3, 10, 5
 KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3),
-              "K5a": (1e-4, 1e-5), "K5b": (1e-3, 1e-3)}
+              "K5a": (1e-4, 1e-5), "K5b": (1e-3, 1e-3), "K6": (0.0, 0.0)}
 EPE_GATE = 0.5            # BASELINE.md's interior EPE gate, px
 WIDE = (4320, 7680)       # wider than the TPU kernels' 4096-column window
+SHIFT_8K = (3, 5)         # bench.py's 8K row: true flow (-5, -3)
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# f32 operations/s outside the tensor cores, for each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 BGR_SHARE = 1e-3          # at most this share of bytes 1 level off (and none more)
 GOLDEN_BGR_SHARE = 1e-2   # sampled bytes that may differ from the JAX golden file
 KERNEL_INFO = {
@@ -64,6 +79,8 @@ KERNEL_INFO = {
             "optical_flow_tpu/pallas/update_gather.py:1851"),
     "K5b": ("blur_solve", "optical_flow_tpu_torch/csrc/blur_solve.cu",
             "optical_flow_tpu/pallas/blur_solve.py:194"),
+    "K6": ("gauss", "optical_flow_tpu_torch/csrc/gauss.cu",
+           "optical_flow_tpu/pallas/gauss.py:107"),
 }
 
 
@@ -135,12 +152,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def frames(h: int, w: int, dev):
+def frames(h: int, w: int, dev, batch: int = BATCH, shift=SHIFT):
     import torch
     from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
-    f1, f2 = smooth_texture_pair(h, w, SHIFT)
-    prev = torch.as_tensor(np.broadcast_to(f1, (BATCH, h, w)).copy()).to(dev)
-    nxt = torch.as_tensor(np.broadcast_to(f2, (BATCH, h, w)).copy()).to(dev)
+    f1, f2 = smooth_texture_pair(h, w, shift)
+    prev = torch.as_tensor(np.broadcast_to(f1, (batch, h, w)).copy()).to(dev)
+    nxt = torch.as_tensor(np.broadcast_to(f2, (batch, h, w)).copy()).to(dev)
     return prev, nxt
 
 
@@ -160,30 +177,147 @@ def random_flow(shape, gen, dev):
     return (torch.rand(shape, generator=gen, device=dev) - 0.5) * 12.0
 
 
+# The least work of each kernel's function, from its shapes: (bytes, f32
+# operations).  Bytes read each input once and write each output once;
+# operations count each multiply and add of the function's arithmetic
+# once (none of a kernel's halo recompute).
+M_OPS = 36        # displaced fetch + M per pixel (update_matrices.cuh)
+SOLVE_OPS = 19    # scale + 2x2 solve per pixel
+
+
+def bound(work) -> tuple:
+    """(ms, "bytes" or "operations"): the least time of `work` = (bytes,
+    ops) on an H100 SXM, the larger of bytes over HBM's rate and ops over
+    the f32 peak."""
+    t_b = work[0] / HBM_BYTES_PER_S * 1e3
+    t_o = work[1] / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def pixels(t) -> int:
+    """Pixels of an (N, C, H, W) or (N, H, W) batch, channels aside."""
+    return t.shape[0] * t.shape[-2] * t.shape[-1]
+
+
+def work_level(img, ntaps: int, oh: int, ow: int) -> tuple:
+    """K3: the frame read once, the level written; vertical sums at two
+    source rows per output row over the frame's width, four horizontal
+    sums and the two lerps per output pixel."""
+    n, _, w = img.shape
+    out = n * oh * ow
+    return (img.numel() * img.element_size() + 4 * out,
+            n * 2 * oh * w * 2 * ntaps + out * (4 * 2 * ntaps + 6))
+
+
+def work_blur(img, ntaps: int) -> tuple:
+    """K6: the frame read and the f32 blur written; a multiply and an add
+    per tap and pass."""
+    return img.numel() * (img.element_size() + 4), img.numel() * 4 * ntaps
+
+
+def work_polyexp(img, poly_n: int, pre: bool) -> tuple:
+    """K2: the frame read and R (5 f32) written; three vertical and six
+    horizontal correlations of 2n + 1 taps, the combination, and the
+    3x3 pre-smooth at level 0."""
+    ops = 18 * (2 * poly_n + 1) + 9 + (20 if pre else 0)
+    return img.numel() * (img.element_size() + 20), img.numel() * ops
+
+
+def window_ops(winsize: int, gaussian: bool) -> int:
+    """Per pixel, five channels' separable window sums: adds alone for the
+    box, a multiply and an add per tap for the Gaussian window."""
+    m = winsize // 2
+    return 10 * (4 * m + 1) if gaussian else 20 * m
+
+
+def work_step(flow, winsize: int, gaussian: bool) -> tuple:
+    """K1: R0 and the flow read, the R1 gather, the new flow written
+    (56 B/px); M, the window sums and the solve."""
+    px = pixels(flow)
+    return 56 * px, px * (M_OPS + window_ops(winsize, gaussian) + SOLVE_OPS)
+
+
+def work_matrices(flow) -> tuple:
+    """K5a: K1's reads and M written (68 B/px)."""
+    return 68 * pixels(flow), M_OPS * pixels(flow)
+
+
+def work_blur_solve(flow, winsize: int, gaussian: bool) -> tuple:
+    """K5b: M read, the flow written (28 B/px); the window sums, the solve."""
+    px = pixels(flow)
+    return 28 * px, px * (window_ops(winsize, gaussian) + SOLVE_OPS)
+
+
+def library_blur(taps, dev):
+    """One PyTorch call of K6's function, as a yardstick that the port
+    never calls: reflect pad + two cuDNN conv2d (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    t = torch.as_tensor(np.asarray(taps, np.float32), device=dev)
+    r = len(taps) // 2
+
+    def blur(img):
+        x = F.pad(img.float()[:, None], (r, r, r, r), mode="reflect")
+        x = F.conv2d(x, t.view(1, 1, -1, 1))
+        return F.conv2d(x, t.view(1, 1, 1, -1))[:, 0]
+    return blur
+
+
+def library_level(taps, oh: int, ow: int, dev):
+    """K3's yardstick: the blur above + F.interpolate (bilinear,
+    half-pixel centres, as cv2's INTER_LINEAR)."""
+    import torch.nn.functional as F
+    blur = library_blur(taps, dev)
+    return lambda img: F.interpolate(blur(img)[:, None], size=(oh, ow), mode="bilinear",
+                                     align_corners=False)[:, 0]
+
+
+def library_box_solve(winsize: int):
+    """K5b's box yardstick: replicate pad + avg_pool2d, then the solve."""
+    import torch.nn.functional as F
+    from optical_flow_tpu_torch.models.farneback import core
+    m = winsize // 2
+    return lambda M: core.solve_flow(
+        F.avg_pool2d(F.pad(M, (m, m, m, m), mode="replicate"), winsize, stride=1), 1.0)
+
+
 def run_cases(kid: str, cases, stats, key=None, phase=None, **extra) -> None:
-    """Each (label, kernel fn, plain fn) case: the kernel against its plain
-    version within KERNEL_TOL[kid], then both timed with CUDA events.
-    Sums over the pyramid levels (labels "L<k>") and the largest error
-    over every case go to stats[key or kid]; one JSON line."""
+    """Each (label, kernel fn, plain fn, work, library fn or None) case:
+    the kernel against its plain version within KERNEL_TOL[kid], then
+    kernel, plain version and library call timed with CUDA events, and
+    the bound of `work` (bytes, ops).  Sums over the pyramid levels
+    (labels "L<k>...") and the largest error over every case go to
+    stats[key or kid]; one JSON line."""
     import torch
     atol, rtol = KERNEL_TOL[kid]
-    levels, ms, plain_ms, max_abs = [], 0.0, 0.0, 0.0
-    for label, kern_fn, plain_fn in cases:
+    levels, max_abs = [], 0.0
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    by_time = {"bytes": 0.0, "operations": 0.0}
+    has_library = True
+    for label, kern_fn, plain_fn, work, lib_fn in cases:
         got, ref = kern_fn(), plain_fn()
         torch.cuda.synchronize()
         require_close(f"{kid} {label}", got, ref, atol, rtol)
         ea, er = errors(got, ref)
-        t_k, t_p = cuda_ms(kern_fn, 10), cuda_ms(plain_fn, 3)
-        levels.append({"level": label, "shape": list(got.shape),
-                       "max_abs_err": ea, "max_rel_err": er,
-                       "ms": t_k, "plain_ms": t_p})
+        row = {"level": label, "shape": list(got.shape), "max_abs_err": ea,
+               "max_rel_err": er, "ms": cuda_ms(kern_fn, 10),
+               "plain_ms": cuda_ms(plain_fn, 3)}
+        row["bound_ms"], row["bound_by"] = bound(work)
+        row["library_ms"] = None if lib_fn is None else cuda_ms(lambda: lib_fn(), 10)
+        levels.append(row)
         if label.startswith("L"):
-            ms, plain_ms = ms + t_k, plain_ms + t_p
+            for k in sums:
+                sums[k] += row[k] or 0.0
+            by_time[row["bound_by"]] += row["bound_ms"]
+            has_library = has_library and lib_fn is not None
         max_abs = max(max_abs, ea)
         del got, ref
-    stats[key or kid] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs}
+    stats[key or kid] = {**sums, "max_abs_err": max_abs,
+                         "bound_by": max(by_time, key=by_time.get),
+                         "library_ms": sums["library_ms"] if has_library else None}
     emit(phase or f"kernel_{kid}", name=KERNEL_INFO[kid][0], atol=atol, rtol=rtol,
-         levels=levels, ms_sum=ms, plain_ms_sum=plain_ms, **extra)
+         levels=levels, ms_sum=sums["ms"], plain_ms_sum=sums["plain_ms"],
+         bound_ms_sum=sums["bound_ms"], **extra)
 
 
 def kernel_phases(prev, nxt, cfg, stats) -> None:
@@ -196,6 +330,7 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
     from optical_flow_tpu_torch.models.farneback.params import (build_plan,
                                                                 gaussian_kernel)
     both = torch.cat([prev, nxt])
+    dev = both.device
     plan = build_plan(prev.shape[1], prev.shape[2], cfg)
     imgs = {}
     k3 = []
@@ -204,9 +339,12 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
             continue
         kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
         imgs[lv.k] = gauss_resize(both, kern, lv.width, lv.height)
+        lib = library_level(kern, lv.height, lv.width, dev)
         k3.append((f"L{lv.k}",
                    lambda kern=kern, lv=lv: gauss_resize(both, kern, lv.width, lv.height),
-                   lambda kern=kern, lv=lv: core.gaussian_blur_resize(both, kern, lv.width, lv.height)))
+                   lambda kern=kern, lv=lv: core.gaussian_blur_resize(both, kern, lv.width, lv.height),
+                   work_level(both, len(kern), lv.height, lv.width),
+                   lambda lib=lib: lib(both)))
     run_cases("K3", k3, stats)
 
     Rs = {}
@@ -219,28 +357,40 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
         Rs[lv.k] = poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
         k2.append((f"L{lv.k}",
                    lambda src=src, pre=pre: poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre),
-                   lambda src=src, pre=pre: core.poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)))
+                   lambda src=src, pre=pre: core.poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre),
+                   work_polyexp(src, cfg.poly_n, pre is not None), None))
+    # beyond the kernel's former cap of poly_n 10, at level 0's shape
+    pre = gaussian_kernel(3, 0.0)
+    k2.append(("poly_n11_level0", lambda: poly_exp(both, 11, 2.4, pre_taps=pre),
+               lambda: core.poly_exp(both, 11, 2.4, pre_taps=pre),
+               work_polyexp(both, 11, True), None))
     run_cases("K2", k2, stats)
     del imgs
 
-    gen = torch.Generator(device=both.device).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     k1 = []
     flows = {}
     for lv in plan.levels:
         R = Rs[lv.k]
         B = R.shape[0] // 2
-        flow = flows[lv.k] = random_flow((B, 2, lv.height, lv.width), gen, both.device)
+        flow = flows[lv.k] = random_flow((B, 2, lv.height, lv.width), gen, dev)
         k1.append((f"L{lv.k}",
                    lambda R=R, B=B, flow=flow: update_blur(R[:B], R[B:], flow, cfg.winsize),
-                   lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow, cfg.winsize)))
+                   lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow, cfg.winsize),
+                   work_step(flow, cfg.winsize, False), None))
     run_cases("K1", k1, stats)
     unfused_phases(Rs, flows, plan, cfg.winsize, stats)
+    ab_gauss_phase(Rs, flows, plan, cfg, stats)
+    del Rs, flows
+    torch.cuda.empty_cache()
+    kernel_k6_phase(both, stats)
 
 
 def unfused_phases(Rs, flows, plan, winsize: int, stats) -> None:
     """K5a and K5b (box and Gaussian window) against their plain versions
     at every level of the 1080p B=16 path and at one 4320x7680 B=1 level,
-    and K5a -> K5b (box) against K1: equal to the bit, both timed."""
+    K1 (box and Gaussian) at that level too, and K5a -> K5b (box) against
+    K1: equal to the bit, both timed."""
     import torch
     from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
@@ -259,21 +409,35 @@ def unfused_phases(Rs, flows, plan, winsize: int, stats) -> None:
                          dtype=torch.uint8)
     Rw = poly_exp(wide, 5, 1.2)
     del wide
-    ops[f"wide_{h}x{w}_B1"] = (Rw[:1], Rw[1:], random_flow((1, 2, h, w), gen, dev))
+    wide_label = f"wide_{h}x{w}_B1"
+    ops[wide_label] = (Rw[:1], Rw[1:], random_flow((1, 2, h, w), gen, dev))
 
     run_cases("K5a", [(label, lambda o=o: update_matrices(*o),
-                       lambda o=o: core.update_matrices(*o))
+                       lambda o=o: core.update_matrices(*o), work_matrices(o[2]), None)
                       for label, o in ops.items()], stats)
     Ms = {label: update_matrices(*o) for label, o in ops.items()}
-    for gaussian, key in ((False, "K5b_box"), (True, "K5b")):
+    for gaussian, key in ((False, "K5b"), (True, "K5b_gaussian")):
         window = "gaussian" if gaussian else "box"
+        lib = None if gaussian else library_box_solve(winsize)
         run_cases("K5b", [(label, lambda M=M, g=gaussian: blur_solve(M, winsize, g),
-                           lambda M=M, g=gaussian: core.blur_solve(M, winsize, g))
+                           lambda M=M, g=gaussian: core.blur_solve(M, winsize, g),
+                           work_blur_solve(M, winsize, gaussian),
+                           None if lib is None else lambda M=M: lib(M))
                           for label, M in Ms.items()], stats, key=key,
                   phase=f"kernel_K5b_{window}", window=window, winsize=winsize)
     stats["K5b"]["max_abs_err"] = max(stats["K5b"]["max_abs_err"],
-                                      stats.pop("K5b_box")["max_abs_err"])
+                                      stats["K5b_gaussian"]["max_abs_err"])
     del Ms
+
+    # K1 at the 8K level, the TPU's column-chunked K8 territory
+    R0w, R1w, fw = ops[wide_label]
+    run_cases("K1", [(f"{wide_label}_{'gaussian' if g else 'box'}",
+                      lambda g=g: update_blur(R0w, R1w, fw, winsize, g),
+                      lambda g=g: core.update_step(R0w, R1w, fw, winsize, g),
+                      work_step(fw, winsize, g), None) for g in (False, True)],
+              stats, key="K1_wide", phase="kernel_K1_wide", winsize=winsize)
+    stats["K1"]["max_abs_err"] = max(stats["K1"]["max_abs_err"],
+                                     stats["K1_wide"]["max_abs_err"])
 
     rows = []
     for label, (R0, R1, rough) in ops.items():
@@ -313,16 +477,111 @@ def unfused_phases(Rs, flows, plan, winsize: int, stats) -> None:
     emit("ab_K1_vs_K5a_K5b_box", winsize=winsize, levels=rows, sums=sums)
 
 
-def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
-              golden_key=None, seeded: bool = False):
-    """The extractor's device step on BATCH copies of the texture pair:
-    launch counts, kernel path vs plain path, interior EPE, the JAX golden
-    entry `golden_key` (by default "<h>x<w>"), and pairs/s of both paths.
-    seeded: flags 4 from seed_flow(BATCH, h, w), through calc_flow_batched
-    (magnitude_sums takes no seed); only the first pair has the golden
-    entry's seed, and calc_flow of that pair must equal it."""
+def ab_gauss_phase(Rs, flows, plan, cfg, stats) -> None:
+    """K1 with the Gaussian window against K5a -> K5b with it, per level on
+    the random flow and per iterate step on the pyramid's own flow: the
+    flows that the Gaussian pyramid (flags 256) feeds its 12 steps on
+    this pair, recorded by iterating it here.  K1 is held to its plain
+    version and to the pair (to the bit); both are timed.  The sums over
+    the 12 own-flow steps are what the choice in
+    `fused_iterate.update_flow` rests on (PERF.md)."""
     import torch
-    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
+    from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, update_blur,
+                                                              update_matrices)
+    from optical_flow_tpu_torch.models.farneback import core
+    from optical_flow_tpu_torch.ops.resize import resize_bilinear_f32
+
+    winsize = cfg.winsize
+    atol, rtol = KERNEL_TOL["K1"]
+    cases = []          # (label, flow kind, step, R0, R1, flow)
+    flow = None
+    for lv in plan.levels:
+        R, B = Rs[lv.k], Rs[lv.k].shape[0] // 2
+        R0, R1 = R[:B], R[B:]
+        cases.append((f"L{lv.k}", "random_6px", None, R0, R1, flows[lv.k]))
+        if flow is None:
+            flow = torch.zeros_like(flows[lv.k])
+        else:
+            flow = resize_bilinear_f32(flow, lv.width, lv.height)
+            flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
+        for step in range(cfg.iterations):
+            cases.append((f"L{lv.k}", "pyramid_own", step, R0, R1, flow))
+            flow = update_blur(R0, R1, flow, winsize, True)
+    del flow
+    rows, max_abs = [], 0.0
+    for label, kind, step, R0, R1, flow in cases:
+        M = torch.empty(R0.shape, dtype=torch.float32, device=flow.device)
+        fused = update_blur(R0, R1, flow, winsize, True)
+        unfused = blur_solve(update_matrices(R0, R1, flow, out=M), winsize, True)
+        plain = core.update_step(R0, R1, flow, winsize, True)
+        torch.cuda.synchronize()
+        require(torch.equal(fused, unfused),
+                f"K5a -> K5b (Gaussian) != K1 at {label} step {step}, {kind} flow: "
+                f"max diff {float((fused - unfused).abs().max())}")
+        require_close(f"K1 Gaussian {label} {kind}", fused, plain, atol, rtol)
+        max_abs = max(max_abs, errors(fused, plain)[0])
+        del plain
+        t_k1 = cuda_ms(lambda: update_blur(R0, R1, flow, winsize, True, out=fused), 10)
+        t_ab = cuda_ms(lambda: blur_solve(update_matrices(R0, R1, flow, out=M),
+                                          winsize, True, out=unfused), 10)
+        rows.append({"level": label, "flow": kind, "step": step,
+                     "shape": list(flow.shape), "bit_equal": True,
+                     "k1_ms": t_k1, "k5a_k5b_ms": t_ab,
+                     "k1_bound_ms": bound(work_step(flow, winsize, True))[0]})
+        del M, fused, unfused
+    stats["K1"]["max_abs_err"] = max(stats["K1"]["max_abs_err"], max_abs)
+    sums = {kind: {"k1_ms_sum": sum(r["k1_ms"] for r in rows if r["flow"] == kind),
+                   "k5a_k5b_ms_sum": sum(r["k5a_k5b_ms"] for r in rows if r["flow"] == kind)}
+            for kind in ("random_6px", "pyramid_own")}
+    own = sums["pyramid_own"]
+    emit("ab_K1_vs_K5a_K5b_gauss", winsize=winsize, levels=rows, sums=sums,
+         k1_max_abs_err_vs_plain=max_abs,
+         faster_on_pyramid_own_flow="K1" if own["k1_ms_sum"] <= own["k5a_k5b_ms_sum"]
+         else "K5a_K5b",
+         rule="K1" if k1_fits(winsize) else "K5a_K5b")
+
+
+def kernel_k6_phase(both, stats) -> None:
+    """K6 at the two levels of the five-level 1080p pyramid that K3 does
+    not take (L4: 39 taps, L5: 79), on the (32, 1080, 1920) uint8 frames
+    of the B=16 pairs: equal to its plain version (max abs error 0)."""
+    from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
+    from optical_flow_tpu_torch.kernels.gauss_resize import k3_fits
+    from optical_flow_tpu_torch.models.farneback import core
+    from optical_flow_tpu_torch.models.farneback.params import (build_plan,
+                                                                gaussian_kernel)
+    from optical_flow_tpu_torch.utils.config import FarnebackConfig
+
+    _, h, w = both.shape
+    cases = []
+    for lv in build_plan(h, w, FarnebackConfig(levels=5)).levels:
+        if lv.k == 0 or k3_fits(lv.smooth_ksize, h, w, lv.width):
+            continue
+        kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
+        lib = library_blur(kern, both.device)
+        cases.append((f"L{lv.k}_{len(kern)}taps",
+                      lambda kern=kern: gaussian_blur(both, kern),
+                      lambda kern=kern: core.gaussian_blur_reflect101(both, kern),
+                      work_blur(both, len(kern)), lambda lib=lib: lib(both)))
+    require(len(cases) > 0, "no level of the five-level pyramid goes to K6")
+    run_cases("K6", cases, stats)
+
+
+def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
+              golden_key: str | None = None, seeded: bool = False,
+              batch: int = BATCH, shift=SHIFT):
+    """The extractor's device step on `batch` copies of the texture pair
+    (shift (dy, dx), true flow (-dx, -dy)): launch counts (and K1's by
+    level width), kernel path vs plain path, interior EPE, the JAX golden
+    entry `golden_key` where there is one, and pairs/s of both paths.
+    seeded: flags 4 from seed_flow(batch, h, w), through calc_flow_batched
+    (magnitude_sums takes no seed); only the first pair has the golden
+    entry's seed, and calc_flow of that pair must equal it.  The first
+    path that launches a kernel gives its count to stats."""
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
+    from optical_flow_tpu_torch.kernels.gauss_resize import k3_fits
     from optical_flow_tpu_torch.kernels.update_gather import k1_fits
     from optical_flow_tpu_torch.models.farneback.flow import (calc_flow,
                                                               calc_flow_batched)
@@ -330,8 +589,9 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     from optical_flow_tpu_torch.ops.polar import magnitude
     from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 
-    prev, nxt = frames(h, w, dev)
-    seed = torch.as_tensor(seed_flow(BATCH, h, w)).to(dev) if seeded else None
+    true_flow = (-float(shift[1]), -float(shift[0]))
+    prev, nxt = frames(h, w, dev, batch, shift)
+    seed = torch.as_tensor(seed_flow(batch, h, w)).to(dev) if seeded else None
 
     def sums_of(plain: bool):
         if seed is None:
@@ -339,27 +599,45 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
         flow = calc_flow_batched(prev, nxt, cfg, seed, plain=plain)
         return magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
 
-    n_levels = len(build_plan(h, w, cfg).levels)
-    steps = n_levels * cfg.iterations
-    fused = not cfg.gaussian_window and k1_fits(cfg.winsize)
-    expected = {"K3": n_levels - 1, "K2": n_levels, "K1": steps if fused else 0,
-                "K4": 0, "K5a": 0 if fused else steps, "K5b": 0 if fused else steps}
-    path = ("K1", "K2", "K3") if fused else ("K5a", "K5b", "K2", "K3")
-    reset_launches()
-    sums = sums_of(False)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    levels = build_plan(h, w, cfg).levels
+    n_k6 = sum(1 for lv in levels
+               if lv.k > 0 and not k3_fits(lv.smooth_ksize, h, w, lv.width))
+    steps = len(levels) * cfg.iterations
+    fused = k1_fits(cfg.winsize)
+    expected = {"K3": len(levels) - 1 - n_k6, "K2": len(levels),
+                "K1": steps if fused else 0, "K4": 0,
+                "K5a": 0 if fused else steps, "K5b": 0 if fused else steps,
+                "K6": n_k6}
+    path = [kid for kid, n in expected.items() if n > 0]
+    # K1's launches by level width: the update_blur calls of the counted run
+    k1_widths = {}
+    update_blur = fused_iterate.update_blur
+
+    def counted(R0, R1, flow, *args, **kwargs):
+        k1_widths[flow.shape[-1]] = k1_widths.get(flow.shape[-1], 0) + 1
+        return update_blur(R0, R1, flow, *args, **kwargs)
+
+    fused_iterate.update_blur = counted
+    try:
+        reset_launches()
+        sums = sums_of(False)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        fused_iterate.update_blur = update_blur
     for kid in path:
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
     require(launches == expected, f"{name}: launches {launches} != {expected}")
+    require(k1_widths == ({lv.width: cfg.iterations for lv in levels} if fused else {}),
+            f"{name}: K1 launches by level width {k1_widths}")
     if stats is not None:
         for kid in path:
-            stats[kid]["launches"] = launches[kid]
+            stats[kid].setdefault("launches", launches[kid])
 
     flow = calc_flow_batched(prev, nxt, cfg, seed)
     flow_p = calc_flow_batched(prev, nxt, cfg, seed, plain=True)
     torch.cuda.synchronize()
-    require(tuple(flow.shape) == (BATCH, h, w, 2), f"{name}: flow shape {tuple(flow.shape)}")
+    require(tuple(flow.shape) == (batch, h, w, 2), f"{name}: flow shape {tuple(flow.shape)}")
     require(bool(torch.isfinite(flow).all()), f"{name}: non-finite flow")
     d = (flow - flow_p).abs()
     share = float((d <= 2e-3 + 1e-3 * flow_p.abs()).float().mean())
@@ -367,7 +645,9 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     require(share >= 0.999, f"{name}: only {share:.6f} of components match the plain path")
     require(mean_d <= 1e-3, f"{name}: mean |kernel - plain| {mean_d} > 1e-3 px")
 
-    fields = {"flags": cfg.flags, "winsize": cfg.winsize, "launches": launches,
+    fields = {"flags": cfg.flags, "winsize": cfg.winsize, "levels": cfg.levels,
+              "launches": launches,
+              "k1_launches_by_width": {str(k): v for k, v in sorted(k1_widths.items())},
               "vs_plain": {"share_within_tol": share, "mean_abs_diff": mean_d,
                            "max_abs_diff": float(d.max())}}
     del d, flow_p
@@ -377,37 +657,42 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
         require(torch.equal(one, flow[0]), f"{name}: calc_flow != calc_flow_batched[0]")
         fields["calc_flow_equals_batched_0"] = True
         del one
-    g = golden[golden_key or f"{h}x{w}"]
+    g = golden[golden_key] if golden_key else {}
     if h > 2 * CROP and w > 2 * CROP:
         inner = flow[:, CROP:h - CROP, CROP:w - CROP]
-        truth = torch.tensor(TRUE_FLOW, device=dev)
+        truth = torch.tensor(true_flow, device=dev)
         epe = float((inner - truth).norm(dim=-1).mean())
         fields["interior_epe_px"] = epe
         fields["jax_interior_epe_px"] = g.get("interior_epe_px")
         if h >= 1080:
             require(epe <= EPE_GATE, f"{name}: interior EPE {epe} > {EPE_GATE} px")
+        del inner
 
-    pairs = slice(0, 1) if seeded else slice(None)    # pairs with the golden input
-    sums_h = sums[pairs].double().cpu().numpy()
-    rel = np.abs(sums_h - g["mag_sum"]) / abs(g["mag_sum"])
-    require(bool((rel <= 1e-4).all()), f"{name}: magnitude sums off by {rel.max()} rel")
-    ys = torch.as_tensor(g["sample_y"], device=dev)
-    xs = torch.as_tensor(g["sample_x"], device=dev)
-    samples = flow[pairs][:, ys, xs].cpu().numpy()
-    ref = np.asarray(g["sample_flow"], dtype=np.float32)
-    within = float((np.abs(samples - ref[None]) <= 2e-3).mean())
-    require(within >= 0.99, f"{name}: only {within:.4f} of golden samples within 2e-3 px")
-    fields["vs_jax_golden"] = {"mag_sum_max_rel_err": float(rel.max()),
-                               "samples_within_2e-3": within}
+    if g:
+        require(g["config"] == {k: getattr(cfg, k) for k in g["config"]}
+                and g["flags"] == cfg.flags and tuple(g["shift"]) == tuple(shift),
+                f"{name}: golden entry {golden_key} is for another input")
+        pairs = slice(0, 1) if seeded else slice(None)    # pairs with the golden input
+        sums_h = sums[pairs].double().cpu().numpy()
+        rel = np.abs(sums_h - g["mag_sum"]) / abs(g["mag_sum"])
+        require(bool((rel <= 1e-4).all()), f"{name}: magnitude sums off by {rel.max()} rel")
+        ys = torch.as_tensor(g["sample_y"], device=dev)
+        xs = torch.as_tensor(g["sample_x"], device=dev)
+        samples = flow[pairs][:, ys, xs].cpu().numpy()
+        ref = np.asarray(g["sample_flow"], dtype=np.float32)
+        within = float((np.abs(samples - ref[None]) <= 2e-3).mean())
+        require(within >= 0.99, f"{name}: only {within:.4f} of golden samples within 2e-3 px")
+        fields["vs_jax_golden"] = {"mag_sum_max_rel_err": float(rel.max()),
+                                   "samples_within_2e-3": within}
     del flow
 
     def pairs_per_s(plain: bool) -> float:
-        return BATCH / median_s(lambda: sums_of(plain))
+        return batch / median_s(lambda: sums_of(plain))
 
     fields["pairs_per_s"] = pairs_per_s(False)
     fields["plain_pairs_per_s"] = pairs_per_s(True)
     fields["card"] = power
-    emit(name, h=h, w=w, batch=BATCH, **fields)
+    emit(name, h=h, w=w, batch=batch, **fields)
 
 
 def kernel_k4_phase(h: int, w: int, dev, stats) -> None:
@@ -435,12 +720,18 @@ def kernel_k4_phase(h: int, w: int, dev, stats) -> None:
         t_k = cuda_ms(lambda: flow_to_bgr_planar(flow), 20)
         t_p = cuda_ms(lambda: colorize.flow_to_bgr_planar(flow), 5)
         px = flow.shape[0] * flow.shape[2] * flow.shape[3]
+        # the least work: the flow read once, BGR written once (11 B/px);
+        # magnitude, fastAtan2 and HSV -> BGR, about 40 operations a pixel
+        bound_ms, bound_by = bound((11 * px, 40 * px))
         rows.append({"case": label, "shape": list(flow.shape), "max_abs_err": diff,
-                     "ms": t_k, "plain_ms": t_p,
-                     # flow read by both launches, BGR written once
+                     "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     # the flow read by both launches, BGR written once
                      "gb_per_s_at_19_b_per_px": 19 * px / t_k / 1e6})
     del cases
     stats["K4"] = {"ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+                   "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+                   "library_ms": None,
                    "max_abs_err": max(r["max_abs_err"] for r in rows)}
     emit("kernel_K4", name=KERNEL_INFO["K4"][0], tolerance="byte-equal",
          cases=rows)
@@ -478,7 +769,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
     n_chunks = -(-BATCH // chunk)
     expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
                 "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks,
-                "K5a": 0, "K5b": 0}
+                "K5a": 0, "K5b": 0, "K6": 0}
     reset_launches()
     bgr = loop(False)
     torch.cuda.synchronize()
@@ -486,7 +777,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
     for kid in ("K1", "K2", "K3", "K4"):
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
     require(launches == expected, f"{name}: launches {launches} != {expected}")
-    stats["K4"]["launches"] = launches["K4"]
+    stats["K4"].setdefault("launches", launches["K4"])
     require(bgr.shape == (BATCH, 3, h, w) and bgr.dtype == np.uint8,
             f"{name}: BGR {bgr.shape} {bgr.dtype}")
     require(np.array_equal(loop(False, chunk_size=5), bgr),
@@ -536,22 +827,26 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
 
 
 def profile_phase(dev, power) -> None:
-    """Where the device time of one 1080p B=16 flow call + magnitude sums
-    goes, under flags 0, 256 and 4, each profiled twice: torch.profiler
-    over PROFILED calls after WARMUP.  Device work is the sum of the CUDA
-    events' device time per call, its busy share that over the profiled
-    wall time per call; the largest kernels are listed by name."""
+    """Where the device time of one flow call + magnitude sums goes:
+    1080p B=16 under flags 0, 256 and 4 and with levels=5, and the 8K
+    pair (B=1), each profiled twice: torch.profiler over PROFILED calls
+    after WARMUP.  Device work is the sum of the CUDA events' device time
+    per call, its busy share that over the profiled wall time per call;
+    the largest kernels are listed by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
     from optical_flow_tpu_torch.ops.polar import magnitude
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
-    prev, nxt = frames(1080, 1920, dev)
+    hd = frames(1080, 1920, dev)
     seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev)
+    cells = [("profile_1080p", hd, FarnebackConfig(flags=flags), seed)
+             for flags in (0, 256, 4)]
+    cells += [("profile_deep_1080p", hd, FarnebackConfig(levels=5), None),
+              ("profile_8k", frames(*WIDE, dev, 1, SHIFT_8K), FarnebackConfig(), None)]
     for run in range(2):
-        for flags in (0, 256, 4):
-            cfg = FarnebackConfig(flags=flags)
+        for phase, (prev, nxt), cfg, seed in cells:
 
             def call():
                 flow = calc_flow_batched(prev, nxt, cfg, seed)
@@ -571,10 +866,10 @@ def profile_phase(dev, power) -> None:
                 if e.device_type == torch.autograd.DeviceType.CUDA:
                     by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / PROFILED
             device_ms = sum(by_name.values())
-            require(device_ms > 0, f"profile flags {flags}: no device time traced")
+            require(device_ms > 0, f"{phase} flags {cfg.flags}: no device time traced")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
-            emit("profile_1080p", run=run, flags=flags, calls=PROFILED,
-                 wall_ms_per_call=wall_ms, device_ms_per_call=device_ms,
+            emit(phase, run=run, flags=cfg.flags, levels=cfg.levels, batch=prev.shape[0],
+                 calls=PROFILED, wall_ms_per_call=wall_ms, device_ms_per_call=device_ms,
                  busy_share=device_ms / wall_ms,
                  top_device_ms_per_call=[[name[:70], ms] for name, ms in top],
                  card=power)
@@ -584,7 +879,8 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile the 1080p B=16 flow call under "
-                             "flags 0, 256 and 4 (PERF.md section 5)")
+                             "flags 0, 256 and 4 and levels=5, and the 8K "
+                             "pair (PERF.md section 5)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -612,8 +908,10 @@ def main(argv: list[str]) -> int:
     kernel_phases(prev, nxt, cfg, stats)
     del prev, nxt
     torch.cuda.empty_cache()
-    e2e_phase("e2e_1080p", 1080, 1920, cfg, dev, golden, power, stats)
-    e2e_phase("e2e_extractor", 72, 129, cfg, dev, golden, power)
+    e2e_phase("e2e_1080p", 1080, 1920, cfg, dev, golden, power, stats,
+              golden_key="1080x1920")
+    e2e_phase("e2e_extractor", 72, 129, cfg, dev, golden, power,
+              golden_key="72x129")
     torch.cuda.empty_cache()
     kernel_k4_phase(1080, 1920, dev, stats)
     torch.cuda.empty_cache()
@@ -627,19 +925,30 @@ def main(argv: list[str]) -> int:
     e2e_phase("e2e_seeded_1080p", 1080, 1920,
               FarnebackConfig(flags=OPTFLOW_USE_INITIAL_FLOW), dev, golden,
               power, golden_key="seeded_1080x1920", seeded=True)
+    torch.cuda.empty_cache()
+    e2e_phase("e2e_winsize63_1080p", 1080, 1920, FarnebackConfig(winsize=63),
+              dev, golden, power, stats)
+    torch.cuda.empty_cache()
+    e2e_phase("e2e_deep_1080p", 1080, 1920, FarnebackConfig(levels=5), dev,
+              golden, power, stats, golden_key="deep5_1080x1920")
+    torch.cuda.empty_cache()
+    e2e_phase("e2e_8k", *WIDE, cfg, dev, golden, power, stats, batch=1,
+              shift=SHIFT_8K)
     if args.profile:
         torch.cuda.empty_cache()
         profile_phase(dev, power)
 
     kernels = []
-    for kid in ("K3", "K2", "K1", "K4", "K5a", "K5b"):
+    for kid in ("K3", "K6", "K2", "K1", "K4", "K5a", "K5b"):
         name, source, replaces = KERNEL_INFO[kid]
+        st = stats[kid]
+        require("launches" in st, f"kernel {kid} was launched on no path")
         kernels.append({"name": f"{kid} {name}", "route": "cuda",
                         "source": source, "replaces": replaces,
-                        "launches": stats[kid]["launches"],
-                        "max_abs_err": stats[kid]["max_abs_err"],
-                        "ms": stats[kid]["ms"],
-                        "plain_ms": stats[kid]["plain_ms"]})
+                        "launches": st["launches"], "max_abs_err": st["max_abs_err"],
+                        "ms": st["ms"], "plain_ms": st["plain_ms"],
+                        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+                        "library_ms": st["library_ms"]})
     print(power)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

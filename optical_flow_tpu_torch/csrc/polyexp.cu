@@ -11,7 +11,11 @@
 // 4 B/px read), and about 18 (2n+1) multiply-adds per pixel.  A block
 // stages its tile plus an n-pixel halo once in shared memory, runs the
 // three vertical correlations there, then the six horizontal ones, so the
-// input is read about once and R is written once.
+// input is read about once and R is written once.  Shared memory is sized
+// from n, and any poly_n whose tile fits runs (n <= 96, kMaxN).  The taps
+// travel by value in the launch's parameters (2.3 KB at kMaxN), where a
+// tap is a constant-cache load; from shared memory, as loads beside the
+// tile's, K2 took 7 % longer at level 0 (PERF.md).
 //
 // Border: with the pre-smooth, the replicate border of the expansion
 // repeats the *smoothed* edge pixel: a staged entry outside the image holds
@@ -24,7 +28,7 @@
 
 namespace {
 
-constexpr int kMaxN = 10;                 // poly_n up to 10
+constexpr int kMaxN = 96;                 // the largest n whose tile fits
 constexpr int kMaxTaps = 2 * kMaxN + 1;
 constexpr int TX = 32;                    // output columns per block
 constexpr int TY = 16;                    // output rows per block

@@ -1,11 +1,16 @@
-// K1: one fused Farnebäck iterate step (update matrices -> box sum -> solve).
+// K1: one fused Farnebäck iterate step (update matrices -> window sum ->
+// solve), with the box or the Gaussian window.
 //
 // Replaces the Pallas kernel of optical_flow_tpu/pallas/update_gather.py
 // (fused_update_blur_store, driven by pallas/fused_iterate.py
 // update_flow_fused).  For each pixel:
 //   1. M = (G11, G12, G22, h1, h2) from the displaced fetch of R1
 //      (update_matrices.cuh, shared with K5a);
-//   2. sum M over the winsize x winsize window with replicate borders;
+//   2. sum M over the winsize x winsize window with replicate borders:
+//      the box (plain adds, then a 1 / winsize^2 scale) or the Gaussian
+//      window (taps t: a = t[0] * M[x - m] + t[1] * M[x - m + 1] + ...,
+//      horizontally, then vertically, scale 1), in K5b's order, so that
+//      K1 equals K5a -> K5b to the bit with either window;
 //   3. solve the 2x2 system, det regularised by +1e-3, for the new flow.
 //
 // What bounds it: per output pixel it reads 7 f32 (R0 and the flow) plus a
@@ -13,11 +18,14 @@
 // chip; the unfused version (K5a -> K5b) adds 2 x 20 B/px of M round trips
 // per step.  So M for a 32x32 output tile plus its (winsize - 1) halo is
 // built in shared memory (5 x 46 x 46 f32 at winsize 15), then summed
-// horizontally, then vertically, and solved.  The halo costs (46/32)^2 =
+// horizontally, then vertically, the five channels of a pixel advancing
+// together (one tap, five independent add chains), and solved.  The halo
+// costs (46/32)^2 =
 // 2.1 M evaluations per output pixel; the card's hardware gather makes the
 // displaced fetch a plain clamped load, exact by construction.  The tile
 // must fit in shared memory, which bounds winsize (<= 61); larger windows
-// go to K5a -> K5b.
+// go to K5a -> K5b.  The grid covers any width (8K frames included, the
+// TPU's column-chunked K8); plane offsets are int64.
 //
 // Border: halo entries outside the image hold M *at the clamped pixel*,
 // that pixel's border weight included (replicate border of the box sum).
@@ -35,16 +43,27 @@ constexpr int TX = 32;  // output columns per block (one per thread)
 constexpr int TY = 32;  // output rows per block
 constexpr int BY = 8;   // thread rows per block
 
+// One term of a window sum: tap x value for the Gaussian window; the box's
+// taps are all 1, and 1 * v == v, so the box adds the values themselves.
+template <bool GAUSS>
+__device__ __forceinline__ float term(float t, float v) {
+  return GAUSS ? t * v : v;
+}
+
+// GAUSS: weighted sums with the window taps; else plain adds (the box).
+template <bool GAUSS>
 __global__ void update_blur_kernel(const float* __restrict__ R0,
                                    const float* __restrict__ R1,
                                    const float* __restrict__ flow_in,
                                    float* __restrict__ flow_out, int H, int W,
-                                   int m, float inv_area) {
+                                   int m, const float* __restrict__ taps_g,
+                                   float scale) {
   extern __shared__ float smem[];
   const int MW = TX + 2 * m;
   const int MH = TY + 2 * m;
   float* Ms = smem;                 // [5][MH][MW]  M on the tile + halo
   float* Hs = smem + 5 * MH * MW;   // [5][MH][TX]  horizontal window sums
+  float* t = Hs + 5 * MH * TX;      // [2m + 1]     window taps (GAUSS)
   const int x0 = blockIdx.x * TX;
   const int y0 = blockIdx.y * TY;
   const long long plane = static_cast<long long>(H) * W;
@@ -52,6 +71,9 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   const float* r1 = R1 + blockIdx.z * 5 * plane;
   const float* fl = flow_in + blockIdx.z * 2 * plane;
   const int tid = threadIdx.y * TX + threadIdx.x;
+
+  if (GAUSS)
+    for (int i = tid; i <= 2 * m; i += TX * BY) t[i] = taps_g[i];
 
   for (int e = tid; e < MH * MW; e += TX * BY) {
     const int ly = e / MW;
@@ -64,13 +86,23 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   }
   __syncthreads();
 
-  for (int e = tid; e < 5 * MH * TX; e += TX * BY) {
-    const int row = e / TX;  // k * MH + ly
-    const int lx = e - row * TX;
-    const float* p = Ms + row * MW + lx;
-    float acc = p[0];
-    for (int i = 1; i <= 2 * m; ++i) acc = acc + p[i];
-    Hs[row * TX + lx] = acc;
+  // horizontal sums; the five channels advance together: one tap for
+  // five independent chains, each in tap order
+  for (int e = tid; e < MH * TX; e += TX * BY) {
+    const int ly = e / TX;
+    const int lx = e - ly * TX;
+    const float* p = Ms + ly * MW + lx;   // channel k at p + k * MH * MW
+    float a[5];
+    const float t0 = GAUSS ? t[0] : 1.0f;   // the box reads no taps
+#pragma unroll
+    for (int k = 0; k < 5; ++k) a[k] = term<GAUSS>(t0, p[k * MH * MW]);
+    for (int i = 1; i <= 2 * m; ++i) {
+      const float ti = GAUSS ? t[i] : 1.0f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) a[k] = a[k] + term<GAUSS>(ti, p[k * MH * MW + i]);
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) Hs[(k * MH + ly) * TX + lx] = a[k];
   }
   __syncthreads();
 
@@ -80,18 +112,22 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   for (int ly = threadIdx.y; ly < TY; ly += BY) {
     const int y = y0 + ly;
     if (y >= H) break;
+    // vertical sums, the five channels together as above
+    const float* h = Hs + ly * TX + threadIdx.x;   // channel k at h + k * MH * TX
     float s[5];
-    for (int k = 0; k < 5; ++k) {
-      const float* p = Hs + (k * MH + ly) * TX + threadIdx.x;
-      float acc = p[0];
-      for (int i = 1; i <= 2 * m; ++i) acc = acc + p[i * TX];
-      s[k] = acc;
+    const float t0 = GAUSS ? t[0] : 1.0f;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) s[k] = term<GAUSS>(t0, h[k * MH * TX]);
+    for (int i = 1; i <= 2 * m; ++i) {
+      const float ti = GAUSS ? t[i] : 1.0f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) s[k] = s[k] + term<GAUSS>(ti, h[k * MH * TX + i * TX]);
     }
-    const float g11 = s[0] * inv_area;
-    const float g12 = s[1] * inv_area;
-    const float g22 = s[2] * inv_area;
-    const float h1 = s[3] * inv_area;
-    const float h2 = s[4] * inv_area;
+    const float g11 = s[0] * scale;
+    const float g12 = s[1] * scale;
+    const float g22 = s[2] * scale;
+    const float h1 = s[3] * scale;
+    const float h2 = s[4] * scale;
     const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
     const long long p = static_cast<long long>(y) * W + x;
     out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
@@ -99,26 +135,39 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   }
 }
 
-}  // namespace
-
-// R0, R1: (B, 5, H, W) f32; flow_in, flow_out: distinct (B, 2, H, W) f32.
-// m = winsize / 2; inv_area = 1 / winsize^2.  Returns a cudaError_t.
-extern "C" int oft_update_blur(const float* R0, const float* R1,
-                               const float* flow_in, float* flow_out, int B,
-                               int H, int W, int m, float inv_area,
-                               int device, void* stream) {
-  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * 5 *
-                      ((TY + 2 * m) * (TX + 2 * m) + (TY + 2 * m) * TX);
-  err = cudaFuncSetAttribute(update_blur_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+template <bool GAUSS>
+int launch(const float* R0, const float* R1, const float* flow_in,
+           float* flow_out, int B, int H, int W, int m, const float* taps,
+           float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) *
+                      (5 * ((TY + 2 * m) * (TX + 2 * m) + (TY + 2 * m) * TX) +
+                       (GAUSS ? 2 * m + 1 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      update_blur_kernel<GAUSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  update_blur_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      R0, R1, flow_in, flow_out, H, W, m, inv_area);
+  update_blur_kernel<GAUSS><<<grid, block, smem, stream>>>(
+      R0, R1, flow_in, flow_out, H, W, m, taps, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// R0, R1: (B, 5, H, W) f32; flow_in, flow_out: distinct (B, 2, H, W) f32.
+// m = winsize / 2.  taps: the 2m + 1 Gaussian window taps on the device
+// (scale 1), or null for the box window (scale 1 / winsize^2).  Returns a
+// cudaError_t.
+extern "C" int oft_update_blur(const float* R0, const float* R1,
+                               const float* flow_in, float* flow_out, int B,
+                               int H, int W, int m, const float* taps,
+                               float scale, int device, void* stream) {
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (taps != nullptr)
+    return launch<true>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale, s);
+  return launch<false>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale, s);
 }

@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels of the main path and their Python wrappers.
 
   K3 `gauss_resize.gauss_resize`  pyramid level from the full-res frame
+  K6 `gauss.gaussian_blur`        full-res Gaussian, for levels K3 does not take
   K2 `polyexp.poly_exp`           polynomial expansion, optional pre-smooth
-  K1 `update_gather.update_blur`  one fused iterate step
+  K1 `update_gather.update_blur`  one fused iterate step, box or Gaussian window
   K4 `colorize.flow_to_bgr_planar` flow -> BGR for the visualizer
   K5a `update_gather.update_matrices` displaced fetch + M alone
   K5b `blur_solve.blur_solve`     box or Gaussian window sum of M + solve
-  `fused_iterate.update_flow` drives a level's iterations: K1 for a box
+  `fused_iterate.update_flow` drives a level's iterations: K1 for a
   window that fits its tile, K5a -> K5b otherwise.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
@@ -17,7 +18,7 @@ run can show that the main path went through the kernels.
 
 import torch
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024

@@ -34,7 +34,9 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=64)
-def _taps(winsize: int, gaussian: bool, device: torch.device) -> torch.Tensor:
+def window_taps(winsize: int, gaussian: bool, device: torch.device) -> torch.Tensor:
+    """The window's 2 * (winsize // 2) + 1 taps on `device`: ones for the
+    box, `core.gaussian_window_kernel` for the Gaussian (also K1's)."""
     taps = (core.gaussian_window_kernel(winsize) if gaussian
             else np.ones(2 * (winsize // 2) + 1, np.float32))
     return torch.as_tensor(taps).to(device)
@@ -56,7 +58,7 @@ def blur_solve(M: torch.Tensor, winsize: int, gaussian: bool,
         raise ValueError(f"M has shape {tuple(M.shape)}, expected (B, 5, H, W)")
     if winsize < 1:
         raise ValueError(f"winsize must be >= 1, got {winsize}")
-    taps = _taps(winsize, bool(gaussian), dev)
+    taps = window_taps(winsize, bool(gaussian), dev)
     scale = 1.0 if gaussian else float(np.float32(1.0 / (winsize * winsize)))
     out = output(out, (B, 2, h, w), dev, M)
     if out.numel() == 0:

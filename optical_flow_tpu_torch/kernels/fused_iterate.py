@@ -1,12 +1,16 @@
 """A pyramid level's iterate loop on the card: K1, or K5a -> K5b.
 
 Replaces `optical_flow_tpu/pallas/fused_iterate.py` (`update_flow_fused`,
-`:146-272`) and the unfused Pallas loop of
+`:146-272`, with its column-chunked branch for wide frames, `:237-262`)
+and the unfused Pallas loop of
 `optical_flow_tpu/models/farneback/flow.py:316-342` (K5a, then K5b, per
-iteration).  `update_flow` picks by `(winsize, gaussian)` alone: the box
-window goes to K1 while K1's tile fits (`k1_fits`, winsize <= 61), the
-Gaussian window and larger boxes to K5a -> K5b.  Buffers are allocated
-once per level and the caller's flow is never written.
+iteration).  `update_flow` picks by the window alone: a box or Gaussian
+window goes to K1 while K1's tile fits (`k1_fits`, winsize <= 61),
+larger windows to K5a -> K5b.  Both give the same flow to the bit; K1 is
+the faster of the two on the smooth flow the pyramid iterates on, with
+either window (chip_smoke.py's `ab_K1_vs_K5a_K5b_box` and `ab_K1_vs_K5a_K5b_gauss`,
+PERF.md).  Buffers are allocated once per level and the caller's flow
+is never written.
 """
 
 from __future__ import annotations
@@ -21,15 +25,16 @@ from optical_flow_tpu_torch.models.farneback import core
 
 
 def update_flow_fused(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
-                      winsize: int, iterations: int) -> torch.Tensor:
-    """`iterations` K1 steps (box window): flow (B, 2, H, W) -> new flow.
-    A step reads its neighbours' flow, so it cannot write in place; the
-    loop ping-pongs between two buffers."""
+                      winsize: int, iterations: int,
+                      gaussian: bool = False) -> torch.Tensor:
+    """`iterations` K1 steps, box or Gaussian window: flow (B, 2, H, W) ->
+    new flow.  A step reads its neighbours' flow, so it cannot write in
+    place; the loop ping-pongs between two buffers."""
     if not on_cuda(flow):
-        return core.update_flow(R0, R1, flow, winsize, iterations)
+        return core.update_flow(R0, R1, flow, winsize, iterations, gaussian)
     bufs = (torch.empty_like(flow), torch.empty_like(flow))
     for i in range(iterations):
-        flow = update_blur(R0, R1, flow, winsize, out=bufs[i % 2])
+        flow = update_blur(R0, R1, flow, winsize, gaussian, out=bufs[i % 2])
     return flow
 
 
@@ -53,10 +58,10 @@ def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                 winsize: int, iterations: int,
                 gaussian: bool = False) -> torch.Tensor:
     """One pyramid level's iterations: flow (B, 2, H, W) -> new flow, on
-    K1 for a box window that fits its tile, else on K5a -> K5b; a CPU
-    tensor runs the plain loop."""
+    K1 for a window that fits its tile, else on K5a -> K5b; a CPU tensor
+    runs the plain loop."""
     if not on_cuda(flow):
         return core.update_flow(R0, R1, flow, winsize, iterations, gaussian)
-    if not gaussian and k1_fits(winsize):
-        return update_flow_fused(R0, R1, flow, winsize, iterations)
+    if k1_fits(winsize):
+        return update_flow_fused(R0, R1, flow, winsize, iterations, gaussian)
     return update_flow_unfused(R0, R1, flow, winsize, iterations, gaussian)

@@ -4,7 +4,10 @@ Replaces `optical_flow_tpu/pallas/gauss_resize.py`
 (`gaussian_blur_resize_multi`, `:345`, and the one-level
 `gaussian_blur_resize_pallas`, `:403`).  Computes
 `resize_bilinear_f32(gaussian_blur_reflect101(img, taps), out_w, out_h)`
-for any dims, from a uint8 or f32 frame batch.
+for any dims, from a uint8 or f32 frame batch, up to 32 taps
+(`k3_fits`); the pyramid's deeper levels, whose level Gaussian is wider
+(39 taps at the fourth level of a halving pyramid), go to K6
+(`kernels/gauss.py`) and the bilinear resize instead.
 
 Bound on the card by the read of the frame (1 B/px for uint8 frames) and
 the 4 B written per output pixel.  A block blurs vertically only at the
@@ -41,14 +44,26 @@ def _kernel():
     return f
 
 
-def _ncols_max(sx0: np.ndarray, sx1: np.ndarray, w: int, r: int) -> int:
+@functools.lru_cache(maxsize=256)
+def _ncols_max(w: int, out_w: int, r: int) -> int:
     """Widest span of source columns any block's horizontal taps reach."""
-    ow = len(sx0)
-    first = np.arange(0, ow, _TX)
-    last = np.minimum(first + _TX, ow) - 1
+    sx0, sx1, _ = _coeffs_f32(w, out_w)
+    first = np.arange(0, out_w, _TX)
+    last = np.minimum(first + _TX, out_w) - 1
     lo = np.maximum(sx0[first] - r, 0)
     hi = np.minimum(sx1[last] + r, w - 1)
     return int((hi - lo + 1).max())
+
+
+def k3_fits(ntaps: int, h: int, w: int, out_w: int) -> bool:
+    """Whether K3 takes a level: an odd tap count up to 32, a frame whose
+    dims exceed the blur's radius (one reflection), and a source-column
+    span per block that fits shared memory.  The pyramid sends every
+    other level to K6 and the bilinear resize."""
+    r = ntaps // 2
+    if ntaps % 2 == 0 or ntaps > _MAX_TAPS or min(h, w) <= r or out_w < 1:
+        return False
+    return 2 * _TY * _ncols_max(w, out_w, r) * 4 <= MAX_SMEM
 
 
 def gauss_resize(img: torch.Tensor, taps, out_w: int,
@@ -61,18 +76,15 @@ def gauss_resize(img: torch.Tensor, taps, out_w: int,
     taps = np.asarray(taps, dtype=np.float32)
     n, h, w = img.shape
     r = len(taps) // 2
-    if len(taps) % 2 == 0 or len(taps) > _MAX_TAPS:
-        raise ValueError(f"need an odd tap count <= {_MAX_TAPS}, got {len(taps)}")
-    if min(h, w) <= r:
-        raise ValueError(f"frame {h}x{w} too small for a {len(taps)}-tap blur")
     out = torch.empty((n, out_h, out_w), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    if not k3_fits(len(taps), h, w, out_w):
+        raise ValueError(f"K3 does not take {len(taps)} taps on {h}x{w} -> "
+                         f"{out_w} columns (k3_fits; the pyramid runs K6 there)")
     sy0, sy1, ty = _coeffs_f32(h, out_h)
     sx0, sx1, tx = _coeffs_f32(w, out_w)
-    ncols_max = _ncols_max(sx0, sx1, w, r)
-    if 2 * _TY * ncols_max * 4 > MAX_SMEM:
-        raise ValueError(f"resize {w}->{out_w} spans too many source columns")
+    ncols_max = _ncols_max(w, out_w, r)
     tables = [torch.as_tensor(a, device=dev) for a in (sy0, sy1, ty, sx0, sx1, tx)]
     taps_host = (ctypes.c_float * len(taps))(*taps.tolist())
     rc = _kernel()(img.data_ptr(), int(img.dtype == torch.uint8),

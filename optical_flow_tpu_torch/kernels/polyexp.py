@@ -10,7 +10,9 @@ Bound on the card by the 20 B/px of R it writes (it reads 1 or 4 B/px).
 A block stages its tile plus an n-pixel halo once in shared memory, so
 the input is read about once and R written once.  With the pre-smooth,
 staged entries outside the image hold the *smoothed* value at the clamped
-pixel, which is the replicate border of the smoothed image.
+pixel, which is the replicate border of the smoothed image.  The tile's
+shared memory is sized from poly_n, and any poly_n whose tile fits runs
+(`k2_fits`: poly_n <= 96, kMaxN in the kernel).
 """
 
 from __future__ import annotations
@@ -21,12 +23,20 @@ import functools
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.kernels import (LAUNCHES, _build, check, on_cuda,
-                                            raise_on_error)
+from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
+                                            on_cuda, raise_on_error)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.params import poly_exp_weights
 
-_MAX_POLY_N = 10  # as kMaxN in the kernel
+_TX, _TY = 32, 16  # output tile of a block, as in the kernel
+
+
+def k2_fits(poly_n: int) -> bool:
+    """Whether K2's tile (the input tile with its poly_n halo and the
+    three vertical correlations) fits one block's shared memory:
+    poly_n <= 96, a window 19 times as wide as cv2's poly_n 5."""
+    n = poly_n
+    return 4 * ((_TY + 2 * n) * (_TX + 2 * n) + 3 * _TY * (_TX + 2 * n)) <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,8 +55,10 @@ def poly_exp(img: torch.Tensor, poly_n: int, poly_sigma: float,
         return core.poly_exp(img, poly_n, poly_sigma, pre_taps)
     dev = img.device
     check(img, "img", dev, (torch.uint8, torch.float32), 3)
-    if not 1 <= poly_n <= _MAX_POLY_N:
-        raise ValueError(f"poly_n must be in [1, {_MAX_POLY_N}], got {poly_n}")
+    if poly_n < 1:
+        raise ValueError(f"poly_n must be >= 1, got {poly_n}")
+    if not k2_fits(poly_n):
+        raise ValueError(f"poly_n {poly_n} does not fit the kernel's tile (<= 96)")
     n_img, h, w = img.shape
     pre = np.zeros(3, np.float32)
     if pre_taps is not None:

@@ -2,12 +2,16 @@
 the update matrices alone (`csrc/update_matrices.cu`).
 
 K1 replaces `optical_flow_tpu/pallas/update_gather.py`
-(`fused_update_blur_store`, `:956`): displaced fetch of R1 -> M = (G11,
-G12, G22, h1, h2) with border weights -> winsize^2 box sum with replicate
-borders -> 2x2 solve, in one launch.  The TPU kernel's candidate blocks,
-anchors and spill tiers exist because the TPU has no fast gather; on the
-card the fetch is a plain clamped load, exact by construction, so none of
-that is ported.
+(`fused_update_blur_store`, `:956`, and its column-chunked form for
+frames wider than the TPU's 4096 lanes, `fused_update_blur_store_chunked`,
+`:1385`): displaced fetch of R1 -> M = (G11, G12, G22, h1, h2) with
+border weights -> winsize^2 box or Gaussian window sum with replicate
+borders -> 2x2 solve, in one launch, at any width.  The Gaussian window
+sums with its taps in K5b's order (`kernels/blur_solve.py`), so K1 equals
+K5a -> K5b to the bit with either window.  The TPU kernel's candidate
+blocks, anchors and spill tiers exist because the TPU has no fast gather;
+on the card the fetch is a plain clamped load, exact by construction, so
+none of that is ported, and neither is the column chunking.
 
 Its floor on the card is device-memory traffic, 56 B/px per step (R0 and
 the flow read, the R1 gather, the new flow written), because M never
@@ -33,23 +37,24 @@ import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
                                             on_cuda, output, raise_on_error)
+from optical_flow_tpu_torch.kernels.blur_solve import window_taps
 from optical_flow_tpu_torch.models.farneback import core
 
 _TILE = 32  # output tile side, as TX and TY in update_blur.cu
 
 
 def k1_fits(winsize: int) -> bool:
-    """Whether K1's shared memory (M on the tile plus its halo, and the
-    row sums) fits one block: winsize <= 61."""
+    """Whether K1's shared memory (M on the tile plus its halo, the row
+    sums and the window taps) fits one block: winsize <= 61."""
     m = winsize // 2
-    return 4 * 5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) <= MAX_SMEM
+    return 4 * (5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) + 2 * m + 1) <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)
 def _k1():
     f = _build.library("update_blur").oft_update_blur
     p, i = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    f.argtypes = [p, p, p, p, i, i, i, i, p, ctypes.c_float, i, p]
     f.restype = i
     return f
 
@@ -78,25 +83,29 @@ def _check_operands(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor):
 
 
 def update_blur(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
-                winsize: int, out: torch.Tensor | None = None) -> torch.Tensor:
+                winsize: int, gaussian: bool = False,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """K1, one iterate step: R0, R1 (B, 5, H, W), flow (B, 2, H, W) f32 ->
-    new flow (B, 2, H, W) f32, written to `out` when given (CUDA only;
-    it must not be `flow`, whose neighbours the step still reads)."""
+    new flow (B, 2, H, W) f32, with the box window or, with `gaussian`,
+    the Gaussian one (winsize >= 2); written to `out` when given (CUDA
+    only; it must not be `flow`, whose neighbours the step still reads)."""
     if not on_cuda(flow):
         if out is not None:
             raise ValueError("out= is for CUDA tensors")
-        return core.update_step(R0, R1, flow, winsize)
+        return core.update_step(R0, R1, flow, winsize, gaussian)
     B, h, w = _check_operands(R0, R1, flow)
     if not k1_fits(winsize):
         raise ValueError(f"winsize {winsize} is too large for the kernel's tile "
                          "(update_matrices + blur_solve take any winsize)")
-    out = output(out, flow.shape, flow.device, flow)
+    dev = flow.device
+    taps = window_taps(winsize, True, dev) if gaussian else None
+    scale = 1.0 if gaussian else float(np.float32(1.0 / (winsize * winsize)))
+    out = output(out, flow.shape, dev, flow)
     if flow.numel() == 0:
         return out
-    dev = flow.device
     rc = _k1()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
-               B, h, w, winsize // 2, float(np.float32(1.0 / (winsize * winsize))),
-               dev.index, torch.cuda.current_stream(dev).cuda_stream)
+               B, h, w, winsize // 2, None if taps is None else taps.data_ptr(),
+               scale, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "update_blur")
     LAUNCHES["K1"] += 1
     return out

@@ -257,10 +257,10 @@ def solve_flow(Mb: torch.Tensor, inv_area: float) -> torch.Tensor:
 
 
 def update_step(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
-                winsize: int) -> torch.Tensor:
-    """One iterate step, M -> box sum -> solve.  Plain version of the
-    `update_blur` kernel (K1)."""
-    return blur_solve(update_matrices(R0, R1, flow), winsize, False)
+                winsize: int, gaussian: bool = False) -> torch.Tensor:
+    """One iterate step, M -> box or Gaussian window sum -> solve.  Plain
+    version of the `update_blur` kernel (K1)."""
+    return blur_solve(update_matrices(R0, R1, flow), winsize, gaussian)
 
 
 def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
@@ -269,5 +269,5 @@ def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     """One pyramid level's iterate loop, M -> window sum -> solve, with
     the box window or, with `gaussian`, the Gaussian one."""
     for _ in range(iterations):
-        flow = blur_solve(update_matrices(R0, R1, flow), winsize, gaussian)
+        flow = update_step(R0, R1, flow, winsize, gaussian)
     return flow

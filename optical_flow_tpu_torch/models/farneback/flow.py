@@ -6,10 +6,11 @@ Port of `optical_flow_tpu.models.farneback.flow` (`_flow_pyramid`,
 cv2's contract: the box or Gaussian window (OPTFLOW_FARNEBACK_GAUSSIAN)
 and the seeded start (OPTFLOW_USE_INITIAL_FLOW).  Every level runs the
 same three stages on the tensors' device: K3 `gauss_resize` builds the
-level from the full-resolution frame (levels k > 0), K2 `poly_exp`
-expands the frames (with the 3-tap pre-smooth at level 0), and
-`fused_iterate.update_flow` iterates the flow, on K1 for a box window
-that fits its tile and on K5a -> K5b otherwise.  Between levels the flow
+level from the full-resolution frame (levels k > 0; the deeper levels
+whose Gaussian K3 does not take run K6 `gaussian_blur` and the bilinear
+resize), K2 `poly_exp` expands the frames (with the 3-tap pre-smooth at
+level 0), and `fused_iterate.update_flow` iterates the flow, on K1 for a
+window that fits its tile and on K5a -> K5b otherwise.  Between levels the flow
 is upsampled x2 in plain PyTorch; a seed is downsampled to the coarsest
 level with INTER_AREA (`ops/resize.py:resize_area_f32`).  The BGR entries
 end with K4 `flow_to_bgr_planar`.  CUDA tensors go through the kernels,
@@ -23,7 +24,8 @@ import torch
 
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
 from optical_flow_tpu_torch.kernels.fused_iterate import update_flow
-from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
+from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
+from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.params import (FarnebackPlan,
@@ -33,6 +35,19 @@ from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.ops.resize import (resize_area_f32,
                                                resize_bilinear_f32)
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
+
+
+def _level_images(frames: torch.Tensor, kern, out_w: int,
+                  out_h: int) -> torch.Tensor:
+    """A pyramid level from the full-resolution frames: K3 where it takes
+    the level (`k3_fits`, by tap count and shapes alone), else K6 and the
+    bilinear resize, the JAX package's route for levels its fused level
+    kernel does not take (`flow.py:229-231`).  Both compute
+    `core.gaussian_blur_resize`."""
+    _, h, w = frames.shape
+    if k3_fits(len(kern), h, w, out_w):
+        return gauss_resize(frames, kern, out_w, out_h)
+    return resize_bilinear_f32(gaussian_blur(frames, kern), out_w, out_h)
 
 
 def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
@@ -54,7 +69,7 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
         level_fn, poly_fn, iterate_fn = (core.gaussian_blur_resize,
                                          core.poly_exp, core.update_flow)
     else:
-        level_fn, poly_fn, iterate_fn = (gauss_resize, poly_exp, update_flow)
+        level_fn, poly_fn, iterate_fn = (_level_images, poly_exp, update_flow)
     B = frames.shape[0] - 1 if chain else frames.shape[0] // 2
     flow = None
     for lv in plan.levels:

@@ -10,7 +10,10 @@ interior mean flow and EPE and the flow at 512 pixels drawn with
 `np.random.default_rng(0)`; `gaussian_<h>x<w>` is the same under
 OPTFLOW_FARNEBACK_GAUSSIAN (flags 256), and `seeded_<h>x<w>` under
 OPTFLOW_USE_INITIAL_FLOW (flags 4) from the seed `seed_flow(1, h, w)`,
-the true flow plus 0.5 px of normal noise; the `chain_bgr_<h>x<w>` entry
+the true flow plus 0.5 px of normal noise; `deep5_1080x1920` is the
+1080x1920 entry of a five-level pyramid (levels=5, whose two coarsest
+levels the JAX package blurs with its full-resolution Gaussian and the
+port with K6); the `chain_bgr_<h>x<w>` entry
 records the planar BGR of `calc_flow_bgr_chain_batched` on the chain
 [f1, f2, f1] (the visualizer's pairs, flow (-3, -2) then (3, 2)) at
 those pixels.  tests/test_torch_flow.py regenerates the 72x129 entries
@@ -55,7 +58,9 @@ def seed_flow(n: int, h: int, w: int) -> np.ndarray:
     return (np.asarray(TRUE_FLOW) + 0.5 * noise).astype(np.float32)
 
 
-def golden_entry(h: int, w: int, flags: int = 0) -> dict:
+def golden_entry(h: int, w: int, flags: int = 0, config: dict | None = None) -> dict:
+    """The entry of the pair at (h, w) under FarnebackConfig(flags=flags,
+    **config); `config` (other fields, e.g. {"levels": 5}) is recorded."""
     import jax.numpy as jnp
 
     from optical_flow_tpu.models.farneback.flow import calc_flow_batched
@@ -65,7 +70,7 @@ def golden_entry(h: int, w: int, flags: int = 0) -> dict:
 
     f1, f2 = smooth_texture_pair(h, w, SHIFT)
     flow = calc_flow_batched(jnp.asarray(f1[None]), jnp.asarray(f2[None]),
-                             FarnebackConfig(flags=flags),
+                             FarnebackConfig(flags=flags, **(config or {})),
                              initial_flow=jnp.asarray(seed_flow(1, h, w)))
     mag, _ = cart_to_polar(flow[..., 0], flow[..., 1])
     mag_sum = float(jnp.sum(mag, axis=(-2, -1))[0])
@@ -77,6 +82,7 @@ def golden_entry(h: int, w: int, flags: int = 0) -> dict:
     epe = np.sqrt(((inner - np.asarray(TRUE_FLOW, np.float32)) ** 2).sum(-1)).mean()
     return {
         "h": h, "w": w, "shift": list(SHIFT), "crop": CROP, "flags": flags,
+        "config": config or {},
         "mag_sum": mag_sum,
         "interior_mean_flow": [float(v) for v in inner.mean(0)],
         "interior_epe_px": float(epe),
@@ -116,6 +122,7 @@ def main() -> int:
     out["gaussian_1080x1920"] = golden_entry(1080, 1920, FLAGS["gaussian_"])
     out["gaussian_72x129"] = golden_entry(72, 129, FLAGS["gaussian_"])
     out["seeded_1080x1920"] = golden_entry(1080, 1920, FLAGS["seeded_"])
+    out["deep5_1080x1920"] = golden_entry(1080, 1920, config={"levels": 5})
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     GOLDEN.write_text(json.dumps(out, separators=(",", ":")) + "\n")
     print(f"wrote {GOLDEN} ({GOLDEN.stat().st_size} bytes)")

@@ -101,6 +101,17 @@ def test_poly_exp_matches_jax(h, w, pre):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("poly_n,poly_sigma", [(11, 2.4), (13, 0.0)])
+def test_poly_exp_wide_window_matches_jax(poly_n, poly_sigma):
+    """K2's plain version beyond cv2's usual 5 and 7 (the card's kernel
+    took at most 10 before; FarnebackConfig accepts any poly_n >= 1)."""
+    img = _frames(2, 41, 67).astype(np.float32)
+    ref = jcore.poly_exp(jnp.asarray(img), poly_n, poly_sigma)
+    got = tcore.poly_exp(torch.as_tensor(img), poly_n, poly_sigma)
+    assert got.shape == (2, 5, 41, 67)
+    _close(got, ref)
+
+
 def test_poly_exp_uint8_input_equals_float():
     img = _frames(2, 33, 47)
     a = tcore.poly_exp(torch.as_tensor(img), 5, 1.2, pre_taps=PRE_TAPS)
@@ -181,10 +192,11 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     assert torch.equal(poly_exp(img, 5, 1.2, pre_taps=PRE_TAPS),
                        tcore.poly_exp(img, 5, 1.2, pre_taps=PRE_TAPS))
     R0, R1, flow = _texture_R(40, 60)
-    assert torch.equal(update_blur(R0, R1, flow, 15),
-                       tcore.update_step(R0, R1, flow, 15))
-    assert torch.equal(update_flow_fused(R0, R1, flow, 15, 3),
-                       tcore.update_flow(R0, R1, flow, 15, 3))
+    for gaussian in (False, True):
+        assert torch.equal(update_blur(R0, R1, flow, 15, gaussian),
+                           tcore.update_step(R0, R1, flow, 15, gaussian))
+        assert torch.equal(update_flow_fused(R0, R1, flow, 15, 3, gaussian),
+                           tcore.update_flow(R0, R1, flow, 15, 3, gaussian))
     assert torch.equal(flow_to_bgr_planar(flow), colorize.flow_to_bgr_planar(flow))
     M = tcore.update_matrices(R0, R1, flow)
     assert torch.equal(update_matrices(R0, R1, flow), M)
@@ -196,7 +208,7 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     with pytest.raises(ValueError):
         update_matrices(R0, R1, flow, out=M)          # out= is for CUDA tensors
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0}
 
 
 def _jax_gauss_sum(M, winsize):
@@ -251,3 +263,11 @@ def test_resize_area_f32_matches_jax(src, dst):
         ref = jresize._area_weights(s, d)
         if ref is not None:
             np.testing.assert_array_equal(tresize._area_weights(s, d), ref)
+
+
+def test_k2_fits_up_to_poly_n_96():
+    """K2's tile fits shared memory up to poly_n 96 (kMaxN in the
+    kernel); the wrapper refuses beyond it on the card."""
+    from optical_flow_tpu_torch.kernels.polyexp import k2_fits
+    assert all(k2_fits(n) for n in (1, 5, 10, 11, 96))
+    assert not k2_fits(97)

@@ -2,9 +2,12 @@
 options that chip_smoke.py does not reach: frames smaller than a tile,
 odd dims, float32 input, other window and expansion sizes, the wrappers'
 input checks, the main path against the plain path on the CPU, the
-visualizer's chained pyramid and K4 colorization, and the unfused iterate
-(K5a -> K5b) with the box and the Gaussian window, the box window beyond
-K1's tile, and the seeded entry.
+visualizer's chained pyramid and K4 colorization, the unfused iterate
+(K5a -> K5b) with the box and the Gaussian window, K1 with the Gaussian
+window, the box window beyond K1's tile, the seeded entry, K6 (the
+full-resolution Gaussian) at any tap count, and the configs whose levels
+K3 does not take (levels 4 and 5, pyr_scale 0.25) or whose expansion is
+wider than cv2's (poly_n 11).
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -14,8 +17,9 @@ without the conftest, from the repo root:
 
 Tolerances are chip_smoke.py's: K2, K3 and K5a atol=1e-4, rtol=1e-5, K1
 and K5b one step atol=1e-3, rtol=1e-3 (the repo's Pallas-vs-XLA
-tolerances); K5a -> K5b with the box window equals K1 to the bit (same
-arithmetic, same sum order); the
+tolerances); K6 equals its plain version to the bit, and K5a -> K5b
+equals K1 to the bit with either window (same arithmetic, same sum
+order); the
 kernels are built with --fmad=false and follow their plain versions op
 for op, so they agree to the bit in practice.  Whole-path flow uses the
 share gate of chip_smoke.py (rare rint flips at .5 boundaries).  K4 is
@@ -34,15 +38,17 @@ from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
 from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
                                                           update_flow_fused,
                                                           update_flow_unfused)
-from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
+from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
+from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
-from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, update_blur,
                                                           update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow, calc_flow_batched, calc_flow_bgr_chain_batched,
     calc_flow_chain_batched)
-from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
+from optical_flow_tpu_torch.models.farneback.params import (build_plan,
+                                                            gaussian_kernel)
 from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.oracle.synthetic import (motion_boundary_pair,
                                                      smooth_texture_pair)
@@ -100,7 +106,8 @@ def test_gauss_resize_kernel(dev, k, h, w, oh, ow, dtype):
 @pytest.mark.parametrize("dtype", ["u8", "f32"])
 @pytest.mark.parametrize("pre", [False, True])
 @pytest.mark.parametrize("h,w,poly_n,poly_sigma", [
-    (37, 53, 5, 1.2), (5, 7, 5, 1.2), (33, 257, 7, 1.5), (2, 40, 3, 0.0)])
+    (37, 53, 5, 1.2), (5, 7, 5, 1.2), (33, 257, 7, 1.5), (2, 40, 3, 0.0),
+    (37, 53, 11, 2.4), (45, 61, 13, 0.0)])
 def test_poly_exp_kernel(dev, h, w, poly_n, poly_sigma, pre, dtype):
     img = _frames(2, h, w, seed=1)
     if dtype == "f32":
@@ -146,7 +153,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         poly_exp(img[0], 5, 1.2)                                  # (H, W)
     with pytest.raises(ValueError):
-        poly_exp(img, 11, 1.2)
+        poly_exp(img, 97, 1.2)                                    # beyond the tile
+    with pytest.raises(ValueError):
+        gaussian_blur(img, [0.5, 0.5])                            # even tap count
+    with pytest.raises(TypeError):
+        gaussian_blur(img.to(torch.int32), LEVEL_TAPS[1])
+    with pytest.raises(ValueError):
+        gaussian_blur(img, LEVEL_TAPS[1], out=torch.empty((2, 40, 64), device=dev).cpu())
     R = torch.zeros((1, 5, 20, 32), device=dev)
     flow = torch.zeros((1, 2, 20, 32), device=dev)
     with pytest.raises(ValueError):
@@ -178,7 +191,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         blur_solve(R.double(), 15, True)
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0}
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("ntaps,h,w", [
+    (3, 37, 53), (39, 97, 161), (79, 97, 161), (79, 120, 200), (39, 40, 41),
+    (249, 260, 300),          # r = 124 >= 100
+    (79, 30, 45),             # frame within the radius: more than one reflection
+    (1, 5, 7)])
+def test_gaussian_blur_kernel(dev, ntaps, h, w, dtype):
+    """K6 against its plain version, to the bit."""
+    img = _frames(3, h, w, seed=ntaps)
+    if dtype == "f32":
+        img = img.astype(np.float32) / 7.0 - 3.0
+    img = torch.as_tensor(img).to(dev)
+    taps = gaussian_kernel(ntaps, (ntaps - 1) / 5)
+    got = gaussian_blur(img, taps)
+    assert got.shape == (3, h, w) and got.dtype == torch.float32
+    ref = core.gaussian_blur_reflect101(img, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.LAUNCHES["K6"] == 1
 
 
 @pytest.mark.parametrize("pair", ["smooth", "boundary"])
@@ -194,7 +228,8 @@ def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
     assert got.is_cuda and got.shape == (2, h, w, 2)
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
-                                "K3": n_levels - 1, "K4": 0, "K5a": 0, "K5b": 0}
+                                "K3": n_levels - 1, "K4": 0, "K5a": 0, "K5b": 0,
+                                "K6": 0}
     ref = calc_flow_batched(prev, nxt)
     d = (got.cpu() - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
@@ -250,7 +285,8 @@ def test_chain_on_the_card(dev, h, w):
     bgr = calc_flow_bgr_chain_batched(got)
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
-                                "K3": n_levels - 1, "K4": 1, "K5a": 0, "K5b": 0}
+                                "K3": n_levels - 1, "K4": 1, "K5a": 0, "K5b": 0,
+                                "K6": 0}
     ref = calc_flow_bgr_chain_batched(frames).numpy()
     d = np.abs(bgr.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
@@ -305,7 +341,7 @@ def test_blur_solve_kernel(dev, h, w, winsize, gaussian):
            core.update_flow(R0, R1, flow, winsize, 3, gaussian), STEP_TOL)
     assert torch.equal(flow, kept)            # the caller's flow is not written
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 3, "K5b": 4}
+                                "K5a": 3, "K5b": 4, "K6": 0}
 
 
 @pytest.mark.parametrize("winsize", [1, 3, 10, 15, 21, 61])
@@ -322,11 +358,37 @@ def test_unfused_box_step_equals_k1(dev, h, w, winsize):
                        update_flow_fused(R0, R1, flow, winsize, 3))
 
 
+@pytest.mark.parametrize("winsize", [3, 15, 21])
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (72, 129)])
+def test_unfused_gaussian_step_equals_k1(dev, h, w, winsize):
+    """K1 with the Gaussian window sums in K5b's order: equal to K5a ->
+    K5b to the bit, one step and a 3-step level, and held to the plain
+    version."""
+    R0, R1, flow = _step_operands(dev, h, w)
+    got = blur_solve(update_matrices(R0, R1, flow), winsize, True)
+    ref = update_blur(R0, R1, flow, winsize, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    _close(ref, core.update_step(R0, R1, flow, winsize, True), STEP_TOL)
+    assert torch.equal(update_flow_unfused(R0, R1, flow, winsize, 3, True),
+                       update_flow_fused(R0, R1, flow, winsize, 3, True))
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+def test_update_blur_kernel_past_8k_width(dev, gaussian):
+    """K1 at a width past 7680 (the TPU's column-chunked K8 there) on a
+    cheap height, against its plain version."""
+    R0, R1, flow = _step_operands(dev, 40, 7700)
+    _close(update_blur(R0, R1, flow, 15, gaussian),
+           core.update_step(R0, R1, flow, 15, gaussian), STEP_TOL)
+
+
 def test_update_flow_picks_by_window(dev):
     R0, R1, flow = _step_operands(dev, 37, 53)
     for winsize, gaussian, path in ((15, False, "K1"), (61, False, "K1"),
-                                    (63, False, "K5b"), (15, True, "K5b"),
-                                    (3, True, "K5b")):
+                                    (63, False, "K5b"), (15, True, "K1"),
+                                    (3, True, "K1"), (61, True, "K1"),
+                                    (63, True, "K5b")):
         kernels.reset_launches()
         update_flow(R0, R1, flow, winsize, 2, gaussian)
         assert kernels.LAUNCHES[path] == 2, (winsize, gaussian)
@@ -337,17 +399,21 @@ def test_update_flow_picks_by_window(dev):
                                            (260, 10)])
 @pytest.mark.parametrize("h,w", [(96, 128), (72, 129)])
 def test_unfused_path_on_the_card_matches_the_cpu(dev, h, w, flags, winsize):
-    """calc_flow_batched through K5a -> K5b (a Gaussian window or a box
-    too large for K1's tile, winsize 63) against the plain path on the
-    CPU, with the launch counts of every level."""
+    """calc_flow_batched with a Gaussian window (K1 up to winsize 61) or a
+    box too large for K1's tile (winsize 63: K5a -> K5b) against the
+    plain path on the CPU, with the launch counts of every level."""
     f1, f2 = smooth_texture_pair(h, w, (2, 3))
     prev, nxt = np.stack([f1, f2]), np.stack([f2, f1])
     seed = (np.random.default_rng(3).standard_normal((2, h, w, 2)) * 2).astype(np.float32)
     cfg = FarnebackConfig(winsize=winsize, flags=flags)
     got = calc_flow_batched(prev, nxt, cfg, seed, device=dev)
     n_levels = kernels.LAUNCHES["K2"]
-    assert kernels.LAUNCHES == {"K1": 0, "K2": n_levels, "K3": n_levels - 1,
-                                "K4": 0, "K5a": 3 * n_levels, "K5b": 3 * n_levels}
+    steps = 3 * n_levels
+    k1 = k1_fits(winsize)
+    assert kernels.LAUNCHES == {"K1": steps if k1 else 0, "K2": n_levels,
+                                "K3": n_levels - 1, "K4": 0,
+                                "K5a": 0 if k1 else steps,
+                                "K5b": 0 if k1 else steps, "K6": 0}
     _share_close(got, calc_flow_batched(prev, nxt, cfg, seed))
 
 
@@ -365,5 +431,48 @@ def test_calc_flow_on_the_card(dev, flags):
     one = calc_flow(prev[0], nxt[0], cfg, seed[0])
     torch.cuda.synchronize()
     assert one.is_cuda and torch.equal(one, batch[0])
-    assert kernels.LAUNCHES["K1" if flags == 4 else "K5b"] > 0
+    assert kernels.LAUNCHES["K1"] > 0
     _share_close(batch, calc_flow_batched(prev.cpu(), nxt.cpu(), cfg, seed))
+
+
+def _k6_levels(h, w, cfg):
+    return sum(1 for lv in build_plan(h, w, cfg).levels
+               if lv.k > 0 and not k3_fits(lv.smooth_ksize, h, w, lv.width))
+
+
+@pytest.mark.parametrize("h,w,config", [
+    (1080, 1920, dict(levels=4)),           # L4 68x120: 39 taps
+    (1080, 1920, dict(levels=5)),           # and L5 34x60: 79 taps
+    (1080, 1920, dict(pyr_scale=0.25)),     # L2 68x120: 39 taps
+    (1080, 1920, dict(poly_n=11, poly_sigma=2.4)),
+    (720, 1280, dict(levels=5)),            # L4 45x80: 39 taps
+])
+def test_deep_configs_on_the_card_match_the_plain_path(dev, h, w, config):
+    """calc_flow_batched on the card at the configs the kernels refused
+    before (K3 past 32 taps, K2 past poly_n 10), with K6 and the bilinear
+    resize on the levels K3 does not take, against the plain path on the
+    card (B=1)."""
+    f1, f2 = smooth_texture_pair(h, w, (2, 3))
+    prev = torch.as_tensor(f1[None]).to(dev)
+    nxt = torch.as_tensor(f2[None]).to(dev)
+    cfg = FarnebackConfig(**config)
+    got = calc_flow_batched(prev, nxt, cfg)
+    n_levels = len(build_plan(h, w, cfg).levels)
+    n_k6 = _k6_levels(h, w, cfg)
+    assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
+                                "K3": n_levels - 1 - n_k6, "K4": 0, "K5a": 0,
+                                "K5b": 0, "K6": n_k6}
+    _share_close(got, calc_flow_batched(prev, nxt, cfg, plain=True))
+
+
+@pytest.mark.parametrize("h,w,config", [(1024, 1024, dict(levels=5)),
+                                        (512, 512, dict(pyr_scale=0.25))])
+def test_deep_configs_on_the_card_match_the_cpu(dev, h, w, config):
+    """The same against the plain path on the CPU, which the CPU tests
+    hold to the JAX package; both K6 levels at 1024x1024, levels=5."""
+    f1, f2 = smooth_texture_pair(h, w, (2, 3))
+    prev, nxt = np.stack([f1, f2]), np.stack([f2, f1])
+    cfg = FarnebackConfig(**config)
+    got = calc_flow_batched(prev, nxt, cfg, device=dev)
+    assert kernels.LAUNCHES["K6"] == _k6_levels(h, w, cfg) > 0
+    _share_close(got, calc_flow_batched(prev, nxt, cfg))

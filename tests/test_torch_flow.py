@@ -152,6 +152,25 @@ def test_calc_flow_batched_window_sizes_match_jax(winsize):
         assert_flow_close(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("config", [
+    dict(levels=4),                     # L4 32x32: 39 taps, past K3's 32
+    dict(pyr_scale=0.25),               # L2 32x32: 39 taps
+    # K2 beyond its old cap of 10, under the Gaussian window: with the box
+    # window the designed difference of the box sums flips rints here
+    # (99.89 % of components in the gate, mean 1.5e-5 px)
+    dict(levels=1, poly_n=11, poly_sigma=2.4, flags=256),
+])
+def test_deep_and_wide_configs_match_jax(config):
+    """A 512x512 pair (B=1) under configs whose levels the card sends to
+    K6 and the bilinear resize, or to K2 with an 11-pixel reach, against
+    the JAX package."""
+    f1, f2 = smooth_texture_pair(512, 512, (2, 3))
+    ref = jax_flow(jnp.asarray(f1[None]), jnp.asarray(f2[None]), JaxConfig(**config))
+    got = calc_flow_batched(f1[None], f2[None], FarnebackConfig(**config))
+    assert got.shape == (1, 512, 512, 2)
+    assert_flow_close(got.numpy(), ref)
+
+
 @pytest.mark.parametrize("flags", [0, 4, 260])
 def test_calc_flow_matches_jax(flags):
     """The single-pair entry, cv2's contract: (H, W) in, (H, W, 2) out."""
@@ -201,7 +220,7 @@ def test_golden_file_is_current():
     assert set(stored) == {"1080x1920", "72x129",
                            "chain_bgr_1080x1920", "chain_bgr_72x129",
                            "gaussian_1080x1920", "gaussian_72x129",
-                           "seeded_1080x1920"}
+                           "seeded_1080x1920", "deep5_1080x1920"}
     assert Path(GOLDEN).stat().st_size < 150_000
     for key in ("72x129", "gaussian_72x129"):
         fresh = golden_entry(72, 129, FLAGS[key[:-len("72x129")]])
@@ -216,10 +235,12 @@ def test_golden_file_is_current():
                                    fresh["interior_epe_px"], atol=1e-5)
         np.testing.assert_allclose(old["sample_flow"], fresh["sample_flow"],
                                    atol=1e-5)
-    for key in ("1080x1920", "gaussian_1080x1920", "seeded_1080x1920"):
+    for key in ("1080x1920", "gaussian_1080x1920", "seeded_1080x1920",
+                "deep5_1080x1920"):
         assert len(stored[key]["sample_flow"]) == 512
         assert stored[key]["interior_epe_px"] <= 0.5
     assert (stored["gaussian_1080x1920"]["flags"], stored["seeded_1080x1920"]["flags"]) == (256, 4)
+    assert stored["deep5_1080x1920"]["config"] == {"levels": 5}
     fresh = chain_bgr_entry(72, 129)
     old = stored["chain_bgr_72x129"]
     assert (old["sample_y"], old["sample_x"]) == (fresh["sample_y"], fresh["sample_x"])

@@ -22,6 +22,7 @@ _PROBE = textwrap.dedent("""
         importlib.import_module(name)
     import chip_smoke
     from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
     from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
     from optical_flow_tpu_torch.kernels.update_gather import update_blur, update_matrices
@@ -43,6 +44,9 @@ _PROBE = textwrap.dedent("""
     update_flow_fused(R[:1], R[1:], flow, 15, 3)
     blur_solve(update_matrices(R[:1], R[1:], flow), 15, True)
     update_flow(R[:1], R[1:], flow, 63, 2, True)
+    update_flow(R[:1], R[1:], flow, 15, 2, True)
+    gaussian_blur(img, [0.25, 0.5, 0.25])
+    calc_flow_batched(img[:1], img[1:], FarnebackConfig(levels=5, poly_n=11))
     calc_flow_batched(img[:1], img[1:])
     calc_flow(img[0], img[1], FarnebackConfig(flags=260), torch.zeros((40, 64, 2)))
     magnitude_sums(img[:1].numpy(), img[1:].numpy())
@@ -85,7 +89,8 @@ def test_port_imports_no_jax_and_no_cuda():
     assert r["jax"] == []
     assert r["jax_package"] == []
     assert r["cuda_initialized"] is False
-    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0}
+    assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0,
+                             "K6": 0}
 
 
 def test_no_jax_import_in_port_sources():
