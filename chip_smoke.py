@@ -5,16 +5,23 @@ Run from the repo root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile]
 
-It builds the seven CUDA kernels from `optical_flow_tpu_torch/csrc/`
+It builds the eight CUDA kernels from `optical_flow_tpu_torch/csrc/`
 (one nvcc per source, in parallel) and holds each against its plain
 PyTorch version at the shapes of the 1080p B=16 paths (K5a, K5b and K1,
 box and Gaussian, also at one 4320x7680 level; K6 at the two levels of a
-five-level 1080p pyramid that K3 does not take; K2 also at poly_n 11),
+five-level 1080p pyramid that K3 does not take; K2 also at poly_n 11; K7,
+box and Gaussian, at every level, and equal to K2 -> K1 to the bit),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
-Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`).  Then it drives the
+Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
+against K2 + K1 x 3 per level on the pyramid's own flow at 1080p B=16
+and 72x129 B=128 (`ab_K7_vs_K2_K1`).  Then it drives the
 extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
-and at the extractor's 72x129, the visualizer's device loop
+(with FUSE_POLYEXP off and on: `e2e_fused_poly_1080p`, every level on
+K7) and at the extractor's 72x129, the extractor's device loop
+`extract_frames` on in-memory 25 fps clips (`e2e_extractor_corpus`:
+4000 frames at 72x129, 200 at 1080x1920, windows/s and busy share; the
+CSV line against the plain path's), the visualizer's device loop
 (`pipeline/visualizer.py:visualize_frames`: chained pyramid, K4 colorize,
 download) on 17 frames at 1080x1920 fed from memory, the Gaussian window
 (flags 256), the seeded entry (flags 4, `calc_flow` and
@@ -56,7 +63,8 @@ BATCH = 16
 CROP = 32
 WARMUP, TIMED, PROFILED = 3, 10, 5
 KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3),
-              "K5a": (1e-4, 1e-5), "K5b": (1e-3, 1e-3), "K6": (0.0, 0.0)}
+              "K5a": (1e-4, 1e-5), "K5b": (1e-3, 1e-3), "K6": (0.0, 0.0),
+              "K7": (1e-3, 1e-3)}
 EPE_GATE = 0.5            # BASELINE.md's interior EPE gate, px
 WIDE = (4320, 7680)       # wider than the TPU kernels' 4096-column window
 SHIFT_8K = (3, 5)         # bench.py's 8K row: true flow (-5, -3)
@@ -81,6 +89,8 @@ KERNEL_INFO = {
             "optical_flow_tpu/pallas/blur_solve.py:194"),
     "K6": ("gauss", "optical_flow_tpu_torch/csrc/gauss.cu",
            "optical_flow_tpu/pallas/gauss.py:107"),
+    "K7": ("update_blur_poly", "optical_flow_tpu_torch/csrc/update_blur_poly.cu",
+           "optical_flow_tpu/pallas/update_gather.py:1145"),
 }
 
 
@@ -120,15 +130,15 @@ def require_bgr_close(name: str, got, ref) -> dict:
     return {"max_diff": int(d.max()), "share_differing": share}
 
 
-def median_s(fn) -> float:
-    """Median wall seconds of fn over TIMED runs after WARMUP, each ended
-    by torch.cuda.synchronize()."""
+def median_s(fn, warmup: int = WARMUP, timed: int = TIMED) -> float:
+    """Median wall seconds of fn over `timed` runs after `warmup`, each
+    ended by torch.cuda.synchronize()."""
     import torch
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMED):
+    for _ in range(timed):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -235,6 +245,14 @@ def work_step(flow, winsize: int, gaussian: bool) -> tuple:
     (56 B/px); M, the window sums and the solve."""
     px = pixels(flow)
     return 56 * px, px * (M_OPS + window_ops(winsize, gaussian) + SOLVE_OPS)
+
+
+def work_step_poly(img0, flow, winsize: int, gaussian: bool, poly_n: int,
+                   pre: bool) -> tuple:
+    """K7: the two level images read, the flow read and written; K2's
+    operations on both images, then K1's."""
+    return (2 * img0.numel() * img0.element_size() + 16 * pixels(flow),
+            2 * work_polyexp(img0, poly_n, pre)[1] + work_step(flow, winsize, gaussian)[1])
 
 
 def work_matrices(flow) -> tuple:
@@ -365,7 +383,6 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
                lambda: core.poly_exp(both, 11, 2.4, pre_taps=pre),
                work_polyexp(both, 11, True), None))
     run_cases("K2", k2, stats)
-    del imgs
 
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = []
@@ -379,11 +396,120 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
                    lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow, cfg.winsize),
                    work_step(flow, cfg.winsize, False), None))
     run_cases("K1", k1, stats)
+    kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats)
+    del imgs
     unfused_phases(Rs, flows, plan, cfg.winsize, stats)
     ab_gauss_phase(Rs, flows, plan, cfg, stats)
     del Rs, flows
     torch.cuda.empty_cache()
     kernel_k6_phase(both, stats)
+
+
+def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
+    """K7 against its plain version at every level of the 1080p B=16
+    pyramid (L0: the uint8 frames with the pre-smooth; L1-L3: K3's f32
+    levels), box and Gaussian, on the random ±6 px flow; and against K2 ->
+    K1 on the same inputs (K2's R of the level, then K1): equal to the
+    bit."""
+    import torch
+    from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+                                                              update_blur_poly)
+    from optical_flow_tpu_torch.models.farneback import core
+    from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
+
+    B = both.shape[0] // 2
+    n, sigma = cfg.poly_n, cfg.poly_sigma
+    for gaussian in (False, True):
+        cases, vs_k2_k1 = [], 0.0
+        for lv in plan.levels:
+            if lv.k == 0:
+                src, pre = both, gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
+            else:
+                src, pre = imgs[lv.k], None
+            img0, img1, flow, R = src[:B], src[B:], flows[lv.k], Rs[lv.k]
+            got = update_blur_poly(img0, img1, flow, cfg.winsize, gaussian, n, sigma, pre)
+            ref = update_blur(R[:B], R[B:], flow, cfg.winsize, gaussian)
+            torch.cuda.synchronize()
+            vs_k2_k1 = max(vs_k2_k1, float((got - ref).abs().max()))
+            require(torch.equal(got, ref),
+                    f"K7 != K2 -> K1 at L{lv.k} (gaussian={gaussian}): max diff {vs_k2_k1}")
+            del got, ref
+            cases.append((
+                f"L{lv.k}",
+                lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
+                    update_blur_poly(a, b, f, cfg.winsize, g, n, sigma, p),
+                lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
+                    core.update_step_poly(a, b, f, cfg.winsize, g, n, sigma, p),
+                work_step_poly(img0, flow, cfg.winsize, gaussian, n, pre is not None), None))
+        window = "gaussian" if gaussian else "box"
+        run_cases("K7", cases, stats, key="K7_gaussian" if gaussian else None,
+                  window=window, max_abs_err_vs_k2_k1=vs_k2_k1)
+    stats["K7"]["max_abs_err"] = max(stats["K7"]["max_abs_err"],
+                                     stats["K7_gaussian"]["max_abs_err"])
+
+
+def ab_k7_phase(name: str, h: int, w: int, batch: int, cfg, dev, power) -> None:
+    """Per level of the pyramid, the level's `iterations` steps on the
+    pyramid's own flow: K7 x iterations against K2 on both frames + K1 x
+    iterations, equal to the bit, each timed twice in one call (K7 first,
+    then K2 + K1 first).  A level shape where K7 is faster in both runs
+    may go to K7 by default (`fused_iterate.use_fused_poly`)."""
+    import torch
+    from optical_flow_tpu_torch.kernels import fused_iterate
+    from optical_flow_tpu_torch.kernels.polyexp import poly_exp
+    from optical_flow_tpu_torch.models.farneback.flow import _level_images
+    from optical_flow_tpu_torch.models.farneback.params import (build_plan,
+                                                                gaussian_kernel)
+    from optical_flow_tpu_torch.ops.resize import resize_bilinear_f32
+
+    prev, nxt = frames(h, w, dev, batch)
+    both = torch.cat([prev, nxt])
+    del prev, nxt
+    plan = build_plan(h, w, cfg)
+    its, win, gauss = cfg.iterations, cfg.winsize, cfg.gaussian_window
+    reps = 5 if h >= 1080 else 50
+    rows, flow = [], None
+    for lv in plan.levels:
+        kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
+        imgs, pre = ((both, kern) if lv.k == 0
+                     else (_level_images(both, kern, lv.width, lv.height), None))
+        img0, img1 = imgs[:batch], imgs[batch:]
+        if flow is None:
+            flow = torch.zeros((batch, 2, lv.height, lv.width), device=dev)
+        else:
+            flow = resize_bilinear_f32(flow, lv.width, lv.height)
+            flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
+
+        def k7(img0=img0, img1=img1, flow=flow, pre=pre):
+            return fused_iterate.update_flow_fused_poly(
+                img0, img1, flow, win, its, gauss, poly_n=cfg.poly_n,
+                poly_sigma=cfg.poly_sigma, pre_taps=pre)
+
+        def k2_k1(imgs=imgs, flow=flow, pre=pre):
+            R = poly_exp(imgs, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
+            return fused_iterate.update_flow_fused(R[:batch], R[batch:], flow, win,
+                                                   its, gauss)
+
+        fused, split = k7(), k2_k1()
+        torch.cuda.synchronize()
+        require(torch.equal(fused, split),
+                f"{name}: K7 x {its} != K2 + K1 x {its} at L{lv.k}: max diff "
+                f"{float((fused - split).abs().max())}")
+        t_k7 = [cuda_ms(k7, reps)]
+        t_split = [cuda_ms(k2_k1, reps)]
+        t_split.append(cuda_ms(k2_k1, reps))
+        t_k7.append(cuda_ms(k7, reps))
+        rows.append({"level": f"L{lv.k}", "shape": [batch, lv.height, lv.width],
+                     "bit_equal": True, "k7_ms": t_k7, "k2_k1_ms": t_split,
+                     "k7_faster_both_runs": all(a < b for a, b in zip(t_k7, t_split)),
+                     "route": "K7" if fused_iterate.use_fused_poly(win, cfg.poly_n)
+                     else "K2_K1"})
+        flow = split
+        del fused, imgs
+    emit(name, h=h, w=w, batch=batch, iterations=its, winsize=win, levels=rows,
+         k7_ms_sum=[sum(r["k7_ms"][i] for r in rows) for i in range(2)],
+         k2_k1_ms_sum=[sum(r["k2_k1_ms"][i] for r in rows) for i in range(2)],
+         fuse_polyexp=fused_iterate.FUSE_POLYEXP, card=power)
 
 
 def unfused_phases(Rs, flows, plan, winsize: int, stats) -> None:
@@ -570,15 +696,18 @@ def kernel_k6_phase(both, stats) -> None:
 
 def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
               golden_key: str | None = None, seeded: bool = False,
-              batch: int = BATCH, shift=SHIFT):
+              batch: int = BATCH, shift=SHIFT, fused_poly: bool = False):
     """The extractor's device step on `batch` copies of the texture pair
     (shift (dy, dx), true flow (-dx, -dy)): launch counts (and K1's by
     level width), kernel path vs plain path, interior EPE, the JAX golden
     entry `golden_key` where there is one, and pairs/s of both paths.
     seeded: flags 4 from seed_flow(batch, h, w), through calc_flow_batched
     (magnitude_sums takes no seed); only the first pair has the golden
-    entry's seed, and calc_flow of that pair must equal it.  The first
-    path that launches a kernel gives its count to stats."""
+    entry's seed, and calc_flow of that pair must equal it.  fused_poly:
+    with FUSE_POLYEXP on (every level on K7, no K2, no K1); the flow must
+    equal the switch-off run's to the bit, and the switch-off run's
+    pairs/s stands in for the plain path's.  The first path that
+    launches a kernel gives its count to stats."""
     import torch
     from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
     from optical_flow_tpu_torch.kernels.gauss_resize import k3_fits
@@ -603,12 +732,14 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     n_k6 = sum(1 for lv in levels
                if lv.k > 0 and not k3_fits(lv.smooth_ksize, h, w, lv.width))
     steps = len(levels) * cfg.iterations
-    fused = k1_fits(cfg.winsize)
-    expected = {"K3": len(levels) - 1 - n_k6, "K2": len(levels),
+    fused = k1_fits(cfg.winsize) and not fused_poly
+    unfused = not k1_fits(cfg.winsize) and not fused_poly
+    expected = {"K3": len(levels) - 1 - n_k6, "K2": 0 if fused_poly else len(levels),
                 "K1": steps if fused else 0, "K4": 0,
-                "K5a": 0 if fused else steps, "K5b": 0 if fused else steps,
-                "K6": n_k6}
+                "K5a": steps if unfused else 0, "K5b": steps if unfused else 0,
+                "K6": n_k6, "K7": steps if fused_poly else 0}
     path = [kid for kid, n in expected.items() if n > 0]
+    fused_iterate.FUSE_POLYEXP = fused_poly
     # K1's launches by level width: the update_blur calls of the counted run
     k1_widths = {}
     update_blur = fused_iterate.update_blur
@@ -635,6 +766,16 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
             stats[kid].setdefault("launches", launches[kid])
 
     flow = calc_flow_batched(prev, nxt, cfg, seed)
+    fields = {}
+    if fused_poly:
+        fused_iterate.FUSE_POLYEXP = False
+        off = calc_flow_batched(prev, nxt, cfg, seed)
+        torch.cuda.synchronize()
+        require(torch.equal(flow, off), f"{name}: switch on != switch off: max diff "
+                f"{float((flow - off).abs().max())}")
+        fields["equals_switch_off"] = True
+        del off
+        fused_iterate.FUSE_POLYEXP = True
     flow_p = calc_flow_batched(prev, nxt, cfg, seed, plain=True)
     torch.cuda.synchronize()
     require(tuple(flow.shape) == (batch, h, w, 2), f"{name}: flow shape {tuple(flow.shape)}")
@@ -645,11 +786,11 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     require(share >= 0.999, f"{name}: only {share:.6f} of components match the plain path")
     require(mean_d <= 1e-3, f"{name}: mean |kernel - plain| {mean_d} > 1e-3 px")
 
-    fields = {"flags": cfg.flags, "winsize": cfg.winsize, "levels": cfg.levels,
-              "launches": launches,
+    fields.update({"flags": cfg.flags, "winsize": cfg.winsize, "levels": cfg.levels,
+              "fuse_polyexp": fused_poly, "launches": launches,
               "k1_launches_by_width": {str(k): v for k, v in sorted(k1_widths.items())},
               "vs_plain": {"share_within_tol": share, "mean_abs_diff": mean_d,
-                           "max_abs_diff": float(d.max())}}
+                           "max_abs_diff": float(d.max())}})
     del d, flow_p
     if seeded:
         one = calc_flow(prev[0], nxt[0], cfg, seed[0])
@@ -690,7 +831,12 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
         return batch / median_s(lambda: sums_of(plain))
 
     fields["pairs_per_s"] = pairs_per_s(False)
-    fields["plain_pairs_per_s"] = pairs_per_s(True)
+    if fused_poly:
+        fused_iterate.FUSE_POLYEXP = False
+        fields["switch_off_pairs_per_s"] = pairs_per_s(False)
+    else:
+        fields["plain_pairs_per_s"] = pairs_per_s(True)
+    fused_iterate.FUSE_POLYEXP = False
     fields["card"] = power
     emit(name, h=h, w=w, batch=batch, **fields)
 
@@ -769,7 +915,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
     n_chunks = -(-BATCH // chunk)
     expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
                 "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks,
-                "K5a": 0, "K5b": 0, "K6": 0}
+                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
     reset_launches()
     bgr = loop(False)
     torch.cuda.synchronize()
@@ -824,6 +970,142 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
          with_download_pairs_per_s=with_download(False),
          with_download_plain_pairs_per_s=with_download(True),
          download_ms=download_s * 1e3, download_mb=out.numel() / 1e6, card=power)
+
+
+def clip_offsets(n: int, amplitude: int) -> list:
+    """Column offsets of a clip moving 1 px per frame, back and forth
+    between 0 and `amplitude` (a triangle wave)."""
+    return [amplitude - abs(amplitude - i % (2 * amplitude)) for i in range(n)]
+
+
+def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
+                               dev, power) -> None:
+    """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
+    over an in-memory 25 fps clip of n_frames (h, w) gray frames moving
+    1 px per frame (`translating_clip`), with the windows extract_video
+    takes at the default step and window (300 ms): the needed frames
+    upload one by one through pinned memory, chunks of
+    `pair_chunk_for(h, w)` pairs, two in flight.  Held to the plain path
+    on the card (sums 1e-4 rel, the scaled CSV line identical), to the
+    FUSE_POLYEXP run (sums equal to the bit), and one pair's flow to its
+    true flow; windows/s and the busy share (torch.profiler) of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.io.sidecar import mag_csv_line
+    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
+    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    fps = 25.0
+    config = ExtractorConfig(farneback=cfg)
+    windows, step = extractor._window_schedule(n_frames, fps, config.step_size,
+                                               config.window_size)
+    todo = list(enumerate(windows))
+    needed = sorted({f for _, win in todo for f in win})
+    dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
+    clip = translating_clip(h, w, [dxs[f] for f in needed])
+    seq = list(zip(needed, clip))
+    chunk = pair_chunk_for(h, w, device=dev)
+
+    def run(plain: bool = False) -> dict:
+        return extractor.extract_frames(seq, todo, config, chunk_size=chunk,
+                                        device=dev, plain=plain)
+
+    n_chunks = -(-len(todo) // chunk)
+    n_levels = len(build_plan(h, w, cfg).levels)
+    reset_launches()
+    sums = run()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    expected = {"K1": 3 * n_levels * n_chunks, "K2": n_levels * n_chunks,
+                "K3": (n_levels - 1) * n_chunks, "K4": 0, "K5a": 0, "K5b": 0,
+                "K6": 0, "K7": 0}
+    require(launches == expected, f"{name}: launches {launches} != {expected}")
+    require(sorted(sums) == list(range(len(todo))), f"{name}: windows missing")
+    plain = run(plain=True)
+    got = np.asarray([sums[i][2] for i in range(len(todo))])
+    ref = np.asarray([plain[i][2] for i in range(len(todo))])
+    # windows at the clip's turning points do not move: both sums are 0 there
+    d = np.abs(got - ref)
+    rel = float((d / np.maximum(np.abs(ref), 1e-30)).max())
+    require(bool((d <= 1e-4 * np.abs(ref)).all()),
+            f"{name}: magnitude sums off the plain path by {rel} rel")
+
+    def csv_line(results) -> str:
+        mags, stamps = extractor.aggregate(results, n_frames, fps, step)
+        return mag_csv_line(extractor.scale_magnitudes(mags, config.top_percentile), stamps)
+
+    line = csv_line(sums)
+    require(line == csv_line(plain), f"{name}: the CSV line differs from the plain path's")
+    fused_iterate.FUSE_POLYEXP = True
+    try:
+        reset_launches()
+        fused = run()
+        torch.cuda.synchronize()
+        k7_launches = dict(LAUNCHES)
+    finally:
+        fused_iterate.FUSE_POLYEXP = False
+    require(fused == sums, f"{name}: FUSE_POLYEXP sums != the switch-off sums")
+    require(k7_launches["K7"] == 3 * n_levels * n_chunks and k7_launches["K2"] == 0,
+            f"{name}: FUSE_POLYEXP launches {k7_launches}")
+
+    # one pair against its true flow: window 1 moves by 6 px (frames 4 -> 10)
+    s_, e_ = windows[1]
+    frame = dict(seq)
+    flow = calc_flow_batched(torch.as_tensor(frame[s_][None]).to(dev),
+                             torch.as_tensor(frame[e_][None]).to(dev), cfg)[0]
+    crop = CROP if h >= 1080 else 8
+    truth = torch.tensor([-(dxs[e_] - dxs[s_]), 0.0], device=dev)
+    epe = float((flow[crop:h - crop, crop:w - crop] - truth).norm(dim=-1).mean())
+    if h >= 1080:
+        require(epe <= EPE_GATE, f"{name}: interior EPE {epe} > {EPE_GATE} px")
+
+    def timed(plain: bool = False) -> float:
+        return len(todo) / median_s(lambda: run(plain), warmup=1, timed=3)
+
+    def busy_share() -> dict:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # kernels and copies; not the metrics' stage ranges, which the
+        # trace also carries on the device's timeline
+        by_name = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and not e.name.startswith("extract/")):
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+        device_ms = sum(by_name.values())
+        require(device_ms > 0, f"{name}: no device time traced")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms": wall_ms, "device_ms": device_ms,
+                "busy_share": device_ms / wall_ms,
+                "top_device_ms": [[n[:60], ms] for n, ms in top]}
+
+    fields = {"windows_per_s": timed()}
+    fields["profiled"] = busy_share()
+    fused_iterate.FUSE_POLYEXP = True
+    try:
+        fields["fuse_polyexp_windows_per_s"] = timed()
+    finally:
+        fused_iterate.FUSE_POLYEXP = False
+    fields["plain_windows_per_s"] = timed(plain=True)
+    emit(name, h=h, w=w, frames=n_frames, frames_uploaded=len(needed),
+         windows=len(todo), chunk=chunk, launches=launches,
+         fuse_polyexp_launches=k7_launches,
+         sums_max_rel_err_vs_plain=rel, csv_equals_plain=True,
+         fuse_polyexp_sums_equal=True, csv_start_end=line.split("\t")[:2],
+         one_pair={"frames": [s_, e_], "true_flow": [-(dxs[e_] - dxs[s_]), 0.0],
+                   "interior_crop": crop, "interior_epe_px": epe},
+         **fields, card=power)
 
 
 def profile_phase(dev, power) -> None:
@@ -913,6 +1195,15 @@ def main(argv: list[str]) -> int:
     e2e_phase("e2e_extractor", 72, 129, cfg, dev, golden, power,
               golden_key="72x129")
     torch.cuda.empty_cache()
+    ab_k7_phase("ab_K7_vs_K2_K1", 1080, 1920, BATCH, cfg, dev, power)
+    ab_k7_phase("ab_K7_vs_K2_K1", 72, 129, 128, cfg, dev, power)
+    torch.cuda.empty_cache()
+    e2e_phase("e2e_fused_poly_1080p", 1080, 1920, cfg, dev, golden, power, stats,
+              golden_key="1080x1920", fused_poly=True)
+    torch.cuda.empty_cache()
+    e2e_extractor_corpus_phase("e2e_extractor_corpus", 72, 129, 4000, cfg, dev, power)
+    e2e_extractor_corpus_phase("e2e_extractor_corpus", 1080, 1920, 200, cfg, dev, power)
+    torch.cuda.empty_cache()
     kernel_k4_phase(1080, 1920, dev, stats)
     torch.cuda.empty_cache()
     e2e_visualizer_phase("e2e_visualizer_1080p", 1080, 1920, cfg, dev, golden,
@@ -939,7 +1230,7 @@ def main(argv: list[str]) -> int:
         profile_phase(dev, power)
 
     kernels = []
-    for kid in ("K3", "K6", "K2", "K1", "K4", "K5a", "K5b"):
+    for kid in ("K3", "K6", "K2", "K1", "K4", "K5a", "K5b", "K7"):
         name, source, replaces = KERNEL_INFO[kid]
         st = stats[kid]
         require("launches" in st, f"kernel {kid} was launched on no path")

@@ -1,8 +1,10 @@
 """optical_flow_tpu_torch — the Farnebäck flow model in PyTorch + CUDA.
 
-A port of `optical_flow_tpu` (JAX/XLA/Pallas) to PyTorch, with the Pallas
-TPU kernels of the main path rewritten by hand in CUDA C++ for Hopper
-(`csrc/`, built with nvcc for sm_90a at first use, `kernels/_build.py`).
+A port of `optical_flow_tpu` (JAX/XLA/Pallas) to PyTorch, with each Pallas
+TPU kernel rewritten by hand in CUDA C++ for Hopper (`csrc/`, built with
+nvcc for sm_90a at first use, `kernels/_build.py`).  Entry points run on
+the current CUDA card unless the caller asks for the CPU
+(`utils/device.py`).
 
 Module names mirror the JAX package so that each module's counterpart is
 easy to find.  Every stage picks its implementation by the device of its

@@ -6,8 +6,9 @@
         <video_path> <images_path> <shot_begin_ms> <shot_end_ms>
 
 (As in the reference, the first positional is named video_dir but is a
-video FILE path.)  It runs on the current CUDA card, or on the CPU where
-there is none.
+video FILE path.)  It runs on the current CUDA card (`--device cuda`, the
+default; it raises where there is none) or, with `--device cpu`, runs the
+plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--validate", action="store_true",
                         help="compute one sampled frame pair with cv2 and log "
                              "mean EPE vs the 0.5-px gate")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the current card, the default) or cpu "
+                             "(the plain PyTorch versions)")
     return parser
 
 
@@ -40,7 +44,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     visualize_shot(args.video_dir, args.images_path, args.shot_begin,
                    args.shot_end,
-                   config=VisualizerConfig(validate=args.validate))
+                   config=VisualizerConfig(validate=args.validate),
+                   device=args.device)
 
 
 if __name__ == "__main__":

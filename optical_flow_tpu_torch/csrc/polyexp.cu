@@ -21,48 +21,27 @@
 // repeats the *smoothed* edge pixel: a staged entry outside the image holds
 // the pre-smoothed value at the clamped pixel; it does not smooth
 // replicated raw pixels.  The pre-smooth itself reflects (REFLECT_101).
-// The arithmetic follows the plain version op for op (--fmad=false).
+// The per-pixel arithmetic is polyexp.cuh's, which K7 shares; it follows
+// the plain version op for op (--fmad=false).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "polyexp.cuh"
+
 namespace {
 
-constexpr int kMaxN = 96;                 // the largest n whose tile fits
-constexpr int kMaxTaps = 2 * kMaxN + 1;
+using oft::PolyConsts;
+
+constexpr int kMaxN = oft::kPolyMaxN;     // the largest n whose tile fits
 constexpr int TX = 32;                    // output columns per block
 constexpr int TY = 16;                    // output rows per block
 constexpr int BY = 8;                     // thread rows per block
 
-struct Consts {
-  float g[kMaxTaps];
-  float xg[kMaxTaps];
-  float xxg[kMaxTaps];
-  float pre[3];
-  float ig11, ig03, ig33, ig55;
-};
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// Single reflection (REFLECT_101); the wrapper guarantees n >= 2.
-__device__ __forceinline__ int reflect101(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * (n - 1) - i;
-  return i;
-}
-
-__device__ __forceinline__ float load(const uint8_t* p, long long i) {
-  return static_cast<float>(p[i]);
-}
-__device__ __forceinline__ float load(const float* p, long long i) {
-  return p[i];
-}
-
 template <typename T, bool PRE>
 __global__ void polyexp_kernel(const T* __restrict__ src, float* __restrict__ R,
-                               int H, int W, int n, Consts c) {
+                               int H, int W, int n,
+                               const __grid_constant__ PolyConsts c) {
   extern __shared__ float smem[];
   const int taps = 2 * n + 1;
   const int SW = TX + 2 * n;
@@ -78,29 +57,9 @@ __global__ void polyexp_kernel(const T* __restrict__ src, float* __restrict__ R,
   for (int e = tid; e < SH * SW; e += TX * BY) {
     const int ly = e / SW;
     const int lx = e - ly * SW;
-    const int y = clampi(y0 - n + ly, 0, H - 1);
-    const int x = clampi(x0 - n + lx, 0, W - 1);
-    float v;
-    if (PRE) {
-      // vertical 3 taps at each of the 3 columns, then horizontal 3 taps
-      const long long ym = static_cast<long long>(reflect101(y - 1, H)) * W;
-      const long long yc = static_cast<long long>(y) * W;
-      const long long yp = static_cast<long long>(reflect101(y + 1, H)) * W;
-      float h[3];
-      for (int j = 0; j < 3; ++j) {
-        const int xx = reflect101(x + j - 1, W);
-        float a = c.pre[0] * load(img, ym + xx);
-        a = a + c.pre[1] * load(img, yc + xx);
-        a = a + c.pre[2] * load(img, yp + xx);
-        h[j] = a;
-      }
-      v = c.pre[0] * h[0];
-      v = v + c.pre[1] * h[1];
-      v = v + c.pre[2] * h[2];
-    } else {
-      v = load(img, static_cast<long long>(y) * W + x);
-    }
-    S[e] = v;
+    const int y = oft::clampi(y0 - n + ly, 0, H - 1);
+    const int x = oft::clampi(x0 - n + lx, 0, W - 1);
+    S[e] = oft::staged_value<T, PRE>(img, y, x, H, W, c);
   }
   __syncthreads();
 
@@ -108,14 +67,8 @@ __global__ void polyexp_kernel(const T* __restrict__ src, float* __restrict__ R,
     const int ly = e / SW;
     const int lx = e - ly * SW;
     const float* col = S + ly * SW + lx;
-    float v = col[0];
-    float a0 = c.g[0] * v, a1 = c.xg[0] * v, a2 = c.xxg[0] * v;
-    for (int k = 1; k < taps; ++k) {
-      v = col[k * SW];
-      a0 = a0 + c.g[k] * v;
-      a1 = a1 + c.xg[k] * v;
-      a2 = a2 + c.xxg[k] * v;
-    }
+    float a0, a1, a2;
+    oft::vertical([&](int k) { return col[k * SW]; }, taps, c, a0, a1, a2);
     rows[(0 * TY + ly) * SW + lx] = a0;
     rows[(1 * TY + ly) * SW + lx] = a1;
     rows[(2 * TY + ly) * SW + lx] = a2;
@@ -130,28 +83,19 @@ __global__ void polyexp_kernel(const T* __restrict__ src, float* __restrict__ R,
     const float* r0 = rows + (0 * TY + ly) * SW + threadIdx.x;
     const float* r1 = rows + (1 * TY + ly) * SW + threadIdx.x;
     const float* r2 = rows + (2 * TY + ly) * SW + threadIdx.x;
-    float b1 = c.g[0] * r0[0], b2 = c.xg[0] * r0[0], b3 = c.g[0] * r1[0];
-    float b4 = c.xxg[0] * r0[0], b5 = c.g[0] * r2[0], b6 = c.xg[0] * r1[0];
-    for (int k = 1; k < taps; ++k) {
-      b1 = b1 + c.g[k] * r0[k];
-      b2 = b2 + c.xg[k] * r0[k];
-      b3 = b3 + c.g[k] * r1[k];
-      b4 = b4 + c.xxg[k] * r0[k];
-      b5 = b5 + c.g[k] * r2[k];
-      b6 = b6 + c.xg[k] * r1[k];
-    }
+    oft::HSums s;
+    oft::horizontal_first(s, c, r0[0], r1[0], r2[0]);
+    for (int k = 1; k < taps; ++k) oft::horizontal_step(s, c, k, r0[k], r1[k], r2[k]);
+    float rv[5];
+    oft::combine(s, c, rv);
     float* out = R + blockIdx.z * 5 * plane + static_cast<long long>(y) * W + x;
-    out[0] = b3 * c.ig11;                       // b_y
-    out[plane] = b2 * c.ig11;                   // b_x
-    out[2 * plane] = b1 * c.ig03 + b5 * c.ig33;  // a_yy
-    out[3 * plane] = b1 * c.ig03 + b4 * c.ig33;  // a_xx
-    out[4 * plane] = b6 * c.ig55;               // a_xy
+    for (int k = 0; k < 5; ++k) out[k * plane] = rv[k];
   }
 }
 
 template <typename T, bool PRE>
 int launch(const void* src, float* R, int nimg, int H, int W, int n,
-           const Consts& c, cudaStream_t stream) {
+           const PolyConsts& c, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((TY + 2 * n) * (TX + 2 * n) + 3 * TY * (TX + 2 * n));
   cudaError_t err = cudaFuncSetAttribute(
@@ -176,19 +120,7 @@ extern "C" int oft_polyexp(const void* src, int src_u8, float* R, int nimg,
   if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int taps = 2 * n + 1;
-  Consts c = {};
-  for (int k = 0; k < taps; ++k) {
-    c.g[k] = consts[k];
-    c.xg[k] = consts[taps + k];
-    c.xxg[k] = consts[2 * taps + k];
-  }
-  const float* rest = consts + 3 * taps;
-  for (int k = 0; k < 3; ++k) c.pre[k] = rest[k];
-  c.ig11 = rest[3];
-  c.ig03 = rest[4];
-  c.ig33 = rest[5];
-  c.ig55 = rest[6];
+  const PolyConsts c = oft::poly_consts(consts, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (src_u8)
     return pre ? launch<uint8_t, true>(src, R, nimg, H, W, n, c, s)

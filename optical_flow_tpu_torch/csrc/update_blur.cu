@@ -30,25 +30,21 @@
 // Border: halo entries outside the image hold M *at the clamped pixel*,
 // that pixel's border weight included (replicate border of the box sum).
 // The input and output flow must be distinct buffers: a step reads its
-// neighbours' flow.  The arithmetic follows the plain version op for op
+// neighbours' flow.  M's arithmetic is update_matrices.cuh's and the
+// window sum and solve window_solve.cuh's, both shared with K7
+// (update_blur_poly.cu); they follow the plain version op for op
 // (--fmad=false).
 
 #include <cuda_runtime.h>
 
 #include "update_matrices.cuh"
+#include "window_solve.cuh"
 
 namespace {
 
 constexpr int TX = 32;  // output columns per block (one per thread)
 constexpr int TY = 32;  // output rows per block
 constexpr int BY = 8;   // thread rows per block
-
-// One term of a window sum: tap x value for the Gaussian window; the box's
-// taps are all 1, and 1 * v == v, so the box adds the values themselves.
-template <bool GAUSS>
-__device__ __forceinline__ float term(float t, float v) {
-  return GAUSS ? t * v : v;
-}
 
 // GAUSS: weighted sums with the window taps; else plain adds (the box).
 template <bool GAUSS>
@@ -86,53 +82,8 @@ __global__ void update_blur_kernel(const float* __restrict__ R0,
   }
   __syncthreads();
 
-  // horizontal sums; the five channels advance together: one tap for
-  // five independent chains, each in tap order
-  for (int e = tid; e < MH * TX; e += TX * BY) {
-    const int ly = e / TX;
-    const int lx = e - ly * TX;
-    const float* p = Ms + ly * MW + lx;   // channel k at p + k * MH * MW
-    float a[5];
-    const float t0 = GAUSS ? t[0] : 1.0f;   // the box reads no taps
-#pragma unroll
-    for (int k = 0; k < 5; ++k) a[k] = term<GAUSS>(t0, p[k * MH * MW]);
-    for (int i = 1; i <= 2 * m; ++i) {
-      const float ti = GAUSS ? t[i] : 1.0f;
-#pragma unroll
-      for (int k = 0; k < 5; ++k) a[k] = a[k] + term<GAUSS>(ti, p[k * MH * MW + i]);
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) Hs[(k * MH + ly) * TX + lx] = a[k];
-  }
-  __syncthreads();
-
-  const int x = x0 + threadIdx.x;
-  if (x >= W) return;
-  float* out = flow_out + blockIdx.z * 2 * plane;
-  for (int ly = threadIdx.y; ly < TY; ly += BY) {
-    const int y = y0 + ly;
-    if (y >= H) break;
-    // vertical sums, the five channels together as above
-    const float* h = Hs + ly * TX + threadIdx.x;   // channel k at h + k * MH * TX
-    float s[5];
-    const float t0 = GAUSS ? t[0] : 1.0f;
-#pragma unroll
-    for (int k = 0; k < 5; ++k) s[k] = term<GAUSS>(t0, h[k * MH * TX]);
-    for (int i = 1; i <= 2 * m; ++i) {
-      const float ti = GAUSS ? t[i] : 1.0f;
-#pragma unroll
-      for (int k = 0; k < 5; ++k) s[k] = s[k] + term<GAUSS>(ti, h[k * MH * TX + i * TX]);
-    }
-    const float g11 = s[0] * scale;
-    const float g12 = s[1] * scale;
-    const float g22 = s[2] * scale;
-    const float h1 = s[3] * scale;
-    const float h2 = s[4] * scale;
-    const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
-    const long long p = static_cast<long long>(y) * W + x;
-    out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
-    out[plane + p] = (g22 * h1 - g12 * h2) * idet;  // dy
-  }
+  oft::window_sum_solve<GAUSS, TX, TY, BY>(Ms, Hs, t, m, scale, x0, y0, H, W,
+                                           plane, flow_out + blockIdx.z * 2 * plane);
 }
 
 template <bool GAUSS>

@@ -1,0 +1,87 @@
+// The window sum and solve of an iterate step, shared by K1
+// (update_blur.cu) and K7 (update_blur_poly.cu): from M on a block's
+// output tile plus its m-pixel halo in shared memory to the new flow, with
+// the box window (plain adds, then a 1 / winsize^2 scale) or the Gaussian
+// one (taps t: a = t[0] * M[x - m] + t[1] * M[x - m + 1] + ...,
+// horizontally, then vertically, scale 1), in K5b's order; then the 2x2
+// solve, det regularised by +1e-3.  The five channels of a pixel advance
+// together: one tap for five independent add chains.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace oft {
+
+// One term of a window sum: tap x value for the Gaussian window; the box's
+// taps are all 1, and 1 * v == v, so the box adds the values themselves.
+template <bool GAUSS>
+__device__ __forceinline__ float term(float t, float v) {
+  return GAUSS ? t * v : v;
+}
+
+// Ms: [5][MH][MW] M on the TX x TY tile at (x0, y0) plus its halo (MH =
+// TY + 2m, MW = TX + 2m), complete (the caller synchronised after writing
+// it); Hs: [5][MH][TX] scratch; t: the 2m + 1 taps (GAUSS).  Writes the
+// new flow of the tile's in-image pixels to out (2, H, W).  A block of TX
+// x BY threads; it synchronises once, then threads outside the image
+// return.
+template <bool GAUSS, int TX, int TY, int BY>
+__device__ __forceinline__ void window_sum_solve(const float* Ms, float* Hs,
+                                                 const float* t, int m,
+                                                 float scale, int x0, int y0,
+                                                 int H, int W, long long plane,
+                                                 float* __restrict__ out) {
+  const int MW = TX + 2 * m;
+  const int MH = TY + 2 * m;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+
+  // horizontal sums; the five channels advance together: one tap for
+  // five independent chains, each in tap order
+  for (int e = tid; e < MH * TX; e += TX * BY) {
+    const int ly = e / TX;
+    const int lx = e - ly * TX;
+    const float* p = Ms + ly * MW + lx;   // channel k at p + k * MH * MW
+    float a[5];
+    const float t0 = GAUSS ? t[0] : 1.0f;   // the box reads no taps
+#pragma unroll
+    for (int k = 0; k < 5; ++k) a[k] = term<GAUSS>(t0, p[k * MH * MW]);
+    for (int i = 1; i <= 2 * m; ++i) {
+      const float ti = GAUSS ? t[i] : 1.0f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) a[k] = a[k] + term<GAUSS>(ti, p[k * MH * MW + i]);
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) Hs[(k * MH + ly) * TX + lx] = a[k];
+  }
+  __syncthreads();
+
+  const int x = x0 + threadIdx.x;
+  if (x >= W) return;
+  for (int ly = threadIdx.y; ly < TY; ly += BY) {
+    const int y = y0 + ly;
+    if (y >= H) break;
+    // vertical sums, the five channels together as above
+    const float* h = Hs + ly * TX + threadIdx.x;   // channel k at h + k * MH * TX
+    float s[5];
+    const float t0 = GAUSS ? t[0] : 1.0f;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) s[k] = term<GAUSS>(t0, h[k * MH * TX]);
+    for (int i = 1; i <= 2 * m; ++i) {
+      const float ti = GAUSS ? t[i] : 1.0f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) s[k] = s[k] + term<GAUSS>(ti, h[k * MH * TX + i * TX]);
+    }
+    const float g11 = s[0] * scale;
+    const float g12 = s[1] * scale;
+    const float g22 = s[2] * scale;
+    const float h1 = s[3] * scale;
+    const float h2 = s[4] * scale;
+    const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
+    const long long p = static_cast<long long>(y) * W + x;
+    out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
+    out[plane + p] = (g22 * h1 - g12 * h2) * idet;  // dy
+  }
+}
+
+}  // namespace oft

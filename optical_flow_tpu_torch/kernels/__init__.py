@@ -7,8 +7,11 @@
   K4 `colorize.flow_to_bgr_planar` flow -> BGR for the visualizer
   K5a `update_gather.update_matrices` displaced fetch + M alone
   K5b `blur_solve.blur_solve`     box or Gaussian window sum of M + solve
+  K7 `update_gather.update_blur_poly` K1 with the expansion derived in-kernel
   `fused_iterate.update_flow` drives a level's iterations: K1 for a
-  window that fits its tile, K5a -> K5b otherwise.
+  window that fits its tile, K5a -> K5b otherwise;
+  `fused_iterate.update_flow_fused_poly` drives K7 where the
+  `FUSE_POLYEXP` switch sends a level to it.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; nothing falls back from one to the other.
@@ -18,7 +21,8 @@ run can show that the main path went through the kernels.
 
 import torch
 
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0,
+            "K7": 0}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024

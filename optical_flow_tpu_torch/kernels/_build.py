@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "optical_flow_tpu_torch"
 SOURCES = ("blur_solve", "colorize", "gauss", "gauss_resize", "polyexp",
-           "update_blur", "update_matrices")
+           "update_blur", "update_blur_poly", "update_matrices")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -11,6 +11,16 @@ the faster of the two on the smooth flow the pyramid iterates on, with
 either window (chip_smoke.py's `ab_K1_vs_K5a_K5b_box` and `ab_K1_vs_K5a_K5b_gauss`,
 PERF.md).  Buffers are allocated once per level and the caller's flow
 is never written.
+
+`update_flow_fused_poly` replaces `update_flow_fused_poly`
+(`optical_flow_tpu/pallas/fused_iterate.py:283-334`): the level's
+iterations on K7, from the level images, with no K2.  The JAX package
+keeps it behind `FUSE_POLYEXP` (`:88`, off); so does the port, where
+`chip_smoke.py`'s `ab_K7_vs_K2_K1` measured K7 slower than K2 + K1 at
+every level shape it drives (PERF.md), so `use_fused_poly` sends a level
+to K7 only where a caller sets the switch.  The TPU kernel's replay of
+spilled frames through the unfused path (`:316-328`) has no counterpart:
+the card's gather is exact for any displacement.
 """
 
 from __future__ import annotations
@@ -19,9 +29,15 @@ import torch
 
 from optical_flow_tpu_torch.kernels import on_cuda
 from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
-from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, update_blur,
+from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, k7_fits,
+                                                          update_blur,
+                                                          update_blur_poly,
                                                           update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
+
+# The JAX package's switch of the same name (off there too): with it on,
+# every level whose window and expansion fit K7's tile iterates on K7.
+FUSE_POLYEXP = False
 
 
 def update_flow_fused(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
@@ -65,3 +81,28 @@ def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     if k1_fits(winsize):
         return update_flow_fused(R0, R1, flow, winsize, iterations, gaussian)
     return update_flow_unfused(R0, R1, flow, winsize, iterations, gaussian)
+
+
+def use_fused_poly(winsize: int, poly_n: int) -> bool:
+    """Whether a level iterates on K7 (`update_flow_fused_poly`) instead
+    of K2 + K1: where `FUSE_POLYEXP` is on and K7's tile fits."""
+    return FUSE_POLYEXP and k7_fits(winsize, poly_n)
+
+
+def update_flow_fused_poly(imgs0: torch.Tensor, imgs1: torch.Tensor,
+                           flow: torch.Tensor, winsize: int, iterations: int,
+                           gaussian: bool = False, *, poly_n: int,
+                           poly_sigma: float, pre_taps=None) -> torch.Tensor:
+    """`iterations` K7 steps from the level images imgs0, imgs1 (B, H, W)
+    (the raw frames with `pre_taps` at level 0): flow (B, 2, H, W) -> new
+    flow, ping-ponging between two buffers.  A CPU tensor runs the plain
+    loop, which expands each image once."""
+    if not on_cuda(flow):
+        R0 = core.poly_exp(imgs0, poly_n, poly_sigma, pre_taps)
+        R1 = core.poly_exp(imgs1, poly_n, poly_sigma, pre_taps)
+        return core.update_flow(R0, R1, flow, winsize, iterations, gaussian)
+    bufs = (torch.empty_like(flow), torch.empty_like(flow))
+    for i in range(iterations):
+        flow = update_blur_poly(imgs0, imgs1, flow, winsize, gaussian, poly_n,
+                                poly_sigma, pre_taps, out=bufs[i % 2])
+    return flow

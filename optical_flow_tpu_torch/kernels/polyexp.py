@@ -12,7 +12,9 @@ the input is read about once and R written once.  With the pre-smooth,
 staged entries outside the image hold the *smoothed* value at the clamped
 pixel, which is the replicate border of the smoothed image.  The tile's
 shared memory is sized from poly_n, and any poly_n whose tile fits runs
-(`k2_fits`: poly_n <= 96, kMaxN in the kernel).
+(`k2_fits`: poly_n <= 96, kMaxN in the kernel).  The per-pixel
+arithmetic is `csrc/polyexp.cuh`, which K7 (`update_gather.update_blur_poly`)
+shares.
 """
 
 from __future__ import annotations
@@ -48,18 +50,14 @@ def _kernel():
     return f
 
 
-def poly_exp(img: torch.Tensor, poly_n: int, poly_sigma: float,
-             pre_taps=None) -> torch.Tensor:
-    """(N, H, W) uint8/f32 -> R (N, 5, H, W) f32."""
-    if not on_cuda(img):
-        return core.poly_exp(img, poly_n, poly_sigma, pre_taps)
-    dev = img.device
-    check(img, "img", dev, (torch.uint8, torch.float32), 3)
+def expansion_consts(poly_n: int, poly_sigma: float, pre_taps, h: int,
+                     w: int):
+    """The expansion's constants as the kernels take them (polyexp.cuh's
+    PolyConsts): a host array [g, xg, xxg, pre (3), ig11, ig03, ig33,
+    ig55]; raises for a poly_n below 1, or pre-smooth taps that are not 3
+    or a frame too small for them (h, w >= 2)."""
     if poly_n < 1:
         raise ValueError(f"poly_n must be >= 1, got {poly_n}")
-    if not k2_fits(poly_n):
-        raise ValueError(f"poly_n {poly_n} does not fit the kernel's tile (<= 96)")
-    n_img, h, w = img.shape
     pre = np.zeros(3, np.float32)
     if pre_taps is not None:
         if len(pre_taps) != 3:
@@ -69,12 +67,25 @@ def poly_exp(img: torch.Tensor, poly_n: int, poly_sigma: float,
         pre = np.asarray(pre_taps, dtype=np.float32)
     g, xg, xxg, ig11, ig03, ig33, ig55 = poly_exp_weights(poly_n, poly_sigma)
     consts = np.concatenate([g, xg, xxg, pre, np.float32([ig11, ig03, ig33, ig55])])
+    return (ctypes.c_float * len(consts))(*consts.tolist())
+
+
+def poly_exp(img: torch.Tensor, poly_n: int, poly_sigma: float,
+             pre_taps=None) -> torch.Tensor:
+    """(N, H, W) uint8/f32 -> R (N, 5, H, W) f32."""
+    if not on_cuda(img):
+        return core.poly_exp(img, poly_n, poly_sigma, pre_taps)
+    dev = img.device
+    check(img, "img", dev, (torch.uint8, torch.float32), 3)
+    n_img, h, w = img.shape
+    consts = expansion_consts(poly_n, poly_sigma, pre_taps, h, w)
+    if not k2_fits(poly_n):
+        raise ValueError(f"poly_n {poly_n} does not fit the kernel's tile (<= 96)")
     R = torch.empty((n_img, 5, h, w), dtype=torch.float32, device=dev)
     if R.numel() == 0:
         return R
-    consts_host = (ctypes.c_float * len(consts))(*consts.tolist())
     rc = _kernel()(img.data_ptr(), int(img.dtype == torch.uint8), R.data_ptr(),
-                   n_img, h, w, poly_n, consts_host, int(pre_taps is not None),
+                   n_img, h, w, poly_n, consts, int(pre_taps is not None),
                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "polyexp")
     LAUNCHES["K2"] += 1

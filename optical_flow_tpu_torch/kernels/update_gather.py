@@ -1,5 +1,6 @@
-"""K1: one fused Farnebäck iterate step (`csrc/update_blur.cu`), and K5a:
-the update matrices alone (`csrc/update_matrices.cu`).
+"""K1: one fused Farnebäck iterate step (`csrc/update_blur.cu`), K5a: the
+update matrices alone (`csrc/update_matrices.cu`), and K7: the step from
+the level images (`csrc/update_blur_poly.cu`).
 
 K1 replaces `optical_flow_tpu/pallas/update_gather.py`
 (`fused_update_blur_store`, `:956`, and its column-chunked form for
@@ -25,6 +26,14 @@ K5a replaces `update_matrices_pallas_batched_stats` (`:1851`, with its
 column-chunked build `:1714` for wide frames and the store-layout entry
 `:2007`): the same M, one thread per pixel, written to device memory for
 K5b (`kernels/blur_solve.py`), at any width.
+
+K7 (`csrc/update_blur_poly.cu`) replaces `fused_update_blur_store_poly`
+(`:1145`): K1 from the level images, with R0 and R1 expanded inside the
+step by K2's arithmetic (`csrc/polyexp.cuh`), so R never exists in device
+memory and the flow equals K2 -> K1 to the bit.  It trades K2's R traffic
+for arithmetic: R1 is derived from its (2n+1)^2 window at every M
+evaluation.  Its tile, K1's plus img0 staged with the expansion's halo,
+bounds winsize and poly_n: `k7_fits`.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
                                             on_cuda, output, raise_on_error)
 from optical_flow_tpu_torch.kernels.blur_solve import window_taps
+from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
 from optical_flow_tpu_torch.models.farneback import core
 
 _TILE = 32  # output tile side, as TX and TY in update_blur.cu
@@ -50,11 +60,31 @@ def k1_fits(winsize: int) -> bool:
     return 4 * (5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) + 2 * m + 1) <= MAX_SMEM
 
 
+def k7_fits(winsize: int, poly_n: int) -> bool:
+    """Whether K7's shared memory (M on the tile plus its halo, img0
+    staged with the expansion's halo, aliased with the row sums, and the
+    window taps) fits one block, and poly_n its constants (<= 96): at
+    poly_n 5 any winsize up to 61, as K1."""
+    m = winsize // 2
+    mh = _TILE + 2 * m
+    staged = max((mh + 2 * poly_n) ** 2, 5 * mh * _TILE)
+    return 1 <= poly_n <= 96 and 4 * (5 * mh * mh + staged + 2 * m + 1) <= MAX_SMEM
+
+
 @functools.lru_cache(maxsize=None)
 def _k1():
     f = _build.library("update_blur").oft_update_blur
     p, i = ctypes.c_void_p, ctypes.c_int
     f.argtypes = [p, p, p, p, i, i, i, i, p, ctypes.c_float, i, p]
+    f.restype = i
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def _k7():
+    f = _build.library("update_blur_poly").oft_update_blur_poly
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p, p, i, p, p, i, i, i, i, i, p, ctypes.c_float, p, i, i, p]
     f.restype = i
     return f
 
@@ -128,4 +158,47 @@ def update_matrices(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                 B, h, w, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "update_matrices")
     LAUNCHES["K5a"] += 1
+    return out
+
+
+def update_blur_poly(img0: torch.Tensor, img1: torch.Tensor, flow: torch.Tensor,
+                     winsize: int, gaussian: bool, poly_n: int, poly_sigma: float,
+                     pre_taps=None, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K7, one iterate step from the level images: img0, img1 (B, H, W)
+    uint8 or f32 (both the same; with `pre_taps`, the level-0 3-tap
+    pre-smooth runs first), flow (B, 2, H, W) f32 -> new flow (B, 2, H, W)
+    f32, with the box or the Gaussian window; written to `out` when given
+    (CUDA only; not `flow`).  Equal to K2 on both images, then K1."""
+    if not on_cuda(flow):
+        if out is not None:
+            raise ValueError("out= is for CUDA tensors")
+        return core.update_step_poly(img0, img1, flow, winsize, gaussian,
+                                     poly_n, poly_sigma, pre_taps)
+    dev = flow.device
+    check(flow, "flow", dev, (torch.float32,), 4)
+    B, two, h, w = flow.shape
+    if two != 2:
+        raise ValueError(f"flow has shape {tuple(flow.shape)}, expected (B, 2, H, W)")
+    for name, t in (("img0", img0), ("img1", img1)):
+        check(t, name, dev, (torch.uint8, torch.float32), 3)
+        if t.shape != (B, h, w):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, h, w)}")
+    if img0.dtype != img1.dtype:
+        raise TypeError(f"img0 is {img0.dtype}, img1 {img1.dtype}")
+    consts = expansion_consts(poly_n, poly_sigma, pre_taps, h, w)
+    if not k7_fits(winsize, poly_n):
+        raise ValueError(f"winsize {winsize} with poly_n {poly_n} does not fit "
+                         "the kernel's tile (K2 -> K1 or K5a -> K5b take it)")
+    taps = window_taps(winsize, True, dev) if gaussian else None
+    scale = 1.0 if gaussian else float(np.float32(1.0 / (winsize * winsize)))
+    out = output(out, flow.shape, dev, flow)
+    if flow.numel() == 0:
+        return out
+    rc = _k7()(img0.data_ptr(), img1.data_ptr(), int(img0.dtype == torch.uint8),
+               flow.data_ptr(), out.data_ptr(), B, h, w, winsize // 2, poly_n,
+               None if taps is None else taps.data_ptr(), scale, consts,
+               int(pre_taps is not None), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(rc, "update_blur_poly")
+    LAUNCHES["K7"] += 1
     return out

@@ -263,6 +263,17 @@ def update_step(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     return blur_solve(update_matrices(R0, R1, flow), winsize, gaussian)
 
 
+def update_step_poly(img0: torch.Tensor, img1: torch.Tensor,
+                     flow: torch.Tensor, winsize: int, gaussian: bool,
+                     poly_n: int, poly_sigma: float,
+                     pre_taps=None) -> torch.Tensor:
+    """One iterate step from the level images: both expanded, then
+    update_step.  Plain version of the `update_blur_poly` kernel (K7)."""
+    return update_step(poly_exp(img0, poly_n, poly_sigma, pre_taps),
+                       poly_exp(img1, poly_n, poly_sigma, pre_taps),
+                       flow, winsize, gaussian)
+
+
 def update_flow(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
                 winsize: int, iterations: int,
                 gaussian: bool = False) -> torch.Tensor:

@@ -10,7 +10,10 @@ level from the full-resolution frame (levels k > 0; the deeper levels
 whose Gaussian K3 does not take run K6 `gaussian_blur` and the bilinear
 resize), K2 `poly_exp` expands the frames (with the 3-tap pre-smooth at
 level 0), and `fused_iterate.update_flow` iterates the flow, on K1 for a
-window that fits its tile and on K5a -> K5b otherwise.  Between levels the flow
+window that fits its tile and on K5a -> K5b otherwise.  Where
+`fused_iterate.FUSE_POLYEXP` is on and K7's tile fits, a level skips K2
+and iterates on K7 from the level images instead (`update_flow_fused_poly`,
+the same flow to the bit).  Between levels the flow
 is upsampled x2 in plain PyTorch; a seed is downsampled to the coarsest
 level with INTER_AREA (`ops/resize.py:resize_area_f32`).  The BGR entries
 end with K4 `flow_to_bgr_planar`.  CUDA tensors go through the kernels,
@@ -22,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from optical_flow_tpu_torch.kernels import fused_iterate
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
-from optical_flow_tpu_torch.kernels.fused_iterate import update_flow
 from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
@@ -35,6 +38,7 @@ from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.ops.resize import (resize_area_f32,
                                                resize_bilinear_f32)
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
+from optical_flow_tpu_torch.utils.device import device_of
 
 
 def _level_images(frames: torch.Tensor, kern, out_w: int,
@@ -69,18 +73,21 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
         level_fn, poly_fn, iterate_fn = (core.gaussian_blur_resize,
                                          core.poly_exp, core.update_flow)
     else:
-        level_fn, poly_fn, iterate_fn = (_level_images, poly_exp, update_flow)
+        level_fn, poly_fn, iterate_fn = (_level_images, poly_exp,
+                                         fused_iterate.update_flow)
     B = frames.shape[0] - 1 if chain else frames.shape[0] // 2
+    # K7 takes the level images and derives R in the step (no K2 launch)
+    poly_fused = not plain and fused_iterate.use_fused_poly(cfg.winsize,
+                                                           cfg.poly_n)
     flow = None
     for lv in plan.levels:
         kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
-        if lv.k > 0:
-            # every level is built from the original frame, never from
-            # another level
-            imgs = level_fn(frames, kern, lv.width, lv.height)
-            R = poly_fn(imgs, cfg.poly_n, cfg.poly_sigma)
-        else:
-            R = poly_fn(frames, cfg.poly_n, cfg.poly_sigma, pre_taps=kern)
+        # every level is built from the original frame, never from another
+        # level; level 0 is the frame itself, pre-smoothed by the expansion
+        imgs, pre = ((level_fn(frames, kern, lv.width, lv.height), None)
+                     if lv.k > 0 else (frames, kern))
+        if not poly_fused:
+            R = poly_fn(imgs, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
         if flow is None and initial_flow is not None:
             scale = float(np.float32(cfg.pyr_scale ** lv.k))
             flow = resize_area_f32(initial_flow, lv.width, lv.height) * scale
@@ -90,6 +97,13 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
         else:
             flow = resize_bilinear_f32(flow, lv.width, lv.height)
             flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
+        if poly_fused:
+            img0, img1 = (imgs[:-1], imgs[1:]) if chain else (imgs[:B], imgs[B:])
+            flow = fused_iterate.update_flow_fused_poly(
+                img0, img1, flow, cfg.winsize, cfg.iterations,
+                cfg.gaussian_window, poly_n=cfg.poly_n,
+                poly_sigma=cfg.poly_sigma, pre_taps=pre)
+            continue
         R0, R1 = (R[:-1], R[1:]) if chain else (R[:B], R[B:])
         flow = iterate_fn(R0, R1, flow, cfg.winsize, cfg.iterations,
                           cfg.gaussian_window)
@@ -104,24 +118,25 @@ def _on_device(frames: torch.Tensor, device) -> torch.Tensor:
 
 
 def _pair_batch(prev, nxt, device) -> torch.Tensor:
-    """(B, H, W) prev and next frames -> the (2B, H, W) batch of both."""
+    """(B, H, W) prev and next frames -> the (2B, H, W) batch of both, on
+    `device_of(prev, device)`: host arrays go to the current card."""
+    device = device_of(prev, device)
     prev = torch.as_tensor(prev)
     nxt = torch.as_tensor(nxt)
     if prev.shape != nxt.shape:
         raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
     if prev.dim() != 3:
         raise ValueError(f"expected (B, H, W), got {tuple(prev.shape)}")
-    device = prev.device if device is None else torch.device(device)
     return _on_device(torch.cat([prev, nxt.to(prev.device)]), device)
 
 
 def _chain_batch(frames, device) -> torch.Tensor:
+    device = device_of(frames, device)
     frames = torch.as_tensor(frames)
     if frames.dim() != 3:
         raise ValueError(f"expected (N, H, W), got {tuple(frames.shape)}")
     if frames.shape[0] < 2:
         raise ValueError("chain needs at least 2 frames")
-    device = frames.device if device is None else torch.device(device)
     return _on_device(frames, device)
 
 
@@ -158,14 +173,17 @@ def _bgr(flow: torch.Tensor, plain: bool) -> torch.Tensor:
 def calc_flow(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
               initial_flow=None) -> torch.Tensor:
     """Dense Farnebäck flow for one frame pair, cv2's contract: (H, W)
-    uint8 or float frames -> (H, W, 2) f32 flow, on the device of `prev`.
+    uint8 or float frames -> (H, W, 2) f32 flow, on the device of a
+    tensor `prev` (a CPU tensor runs the plain versions), and on the
+    current CUDA card for host arrays, which raise where there is none.
     initial_flow: an (H, W, 2) seed, used when config.flags has
     OPTFLOW_USE_INITIAL_FLOW."""
+    device = device_of(prev)
     prev, nxt = torch.as_tensor(prev), torch.as_tensor(nxt)
     if prev.dim() != 2:
         raise ValueError(f"expected (H, W) grayscale, got {tuple(prev.shape)}")
     seed = None if initial_flow is None else torch.as_tensor(initial_flow)[None]
-    return calc_flow_batched(prev[None], nxt[None], config, seed)[0]
+    return calc_flow_batched(prev[None], nxt[None], config, seed, device=device)[0]
 
 
 def calc_flow_batched(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
@@ -176,8 +194,10 @@ def calc_flow_batched(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
     prev, nxt: (B, H, W) uint8 or float frames, numpy arrays or tensors.
     initial_flow: a (B, H, W, 2) seed, numpy or tensor, required when
     config.flags has OPTFLOW_USE_INITIAL_FLOW and ignored otherwise.
-    device: where to run; by default the device of `prev`.  uint8 frames
-    are uploaded as uint8 and cast on the device.  Returns (B, H, W, 2)
+    device: where to run; by default the device of a tensor `prev` (a CPU
+    tensor runs the plain versions on the CPU) and the current CUDA card
+    for host arrays, which raise where there is none.  uint8 frames are
+    uploaded as uint8 and cast on the device.  Returns (B, H, W, 2)
     f32 flow (x-displacement, y-displacement), a view of the planar
     (B, 2, H, W) result.  plain=True runs the plain PyTorch versions of
     the kernels on the device as well: the reference that the kernel path

@@ -1,7 +1,9 @@
 """Float resizes with cv2.resize semantics.
 
 Port of `optical_flow_tpu.ops.resize` (`_coeffs_f32`,
-`resize_bilinear_f32`, `_area_weights`, `resize_area_f32`).  Bilinear:
+`resize_bilinear_f32`, `_area_weights`, `resize_area_f32`, and the host
+pieces of the extractor's frame resize, `_coeffs_u8` and
+`aspect_preserving_size`, which `ops/host.py` runs).  Bilinear:
 half-pixel centres and edge clamp; the pyramid uses it for the x2 flow
 upsample between levels, and it is the second half of the plain version
 of the `gauss_resize` kernel.  INTER_AREA: the seeded entry's downsample
@@ -32,6 +34,33 @@ def _coeffs_f32(s_len: int, d_len: int):
     s0[s0 >= s_len - 1] = max(s_len - 2, 0)
     s1 = np.minimum(s0 + 1, s_len - 1)
     return s0, s1, t
+
+
+@functools.lru_cache(maxsize=256)
+def _coeffs_u8(s_len: int, d_len: int):
+    """(s0, s1, a0, a1): cv2's uint8 INTER_LINEAR source indices and Q11
+    fixed-point weights, from the f32 sample position (rint, half to
+    even)."""
+    scale = s_len / d_len
+    f = ((np.arange(d_len) + 0.5) * scale - 0.5).astype(np.float32)
+    s0 = np.floor(f).astype(np.int32)
+    t = f - s0.astype(np.float32)
+    t[s0 < 0] = 0.0
+    s0[s0 < 0] = 0
+    t[s0 >= s_len - 1] = 1.0
+    s0[s0 >= s_len - 1] = max(s_len - 2, 0)
+    a1 = np.rint(t * np.float32(2048)).astype(np.int32)
+    a0 = np.rint((np.float32(1.0) - t) * np.float32(2048)).astype(np.int32)
+    s1 = np.minimum(s0 + 1, s_len - 1)
+    return s0, s1, a0, a1
+
+
+def aspect_preserving_size(src_h: int, src_w: int, frame_width: int):
+    """Target (width, height) as the reference computes it
+    (`optical_flow.py:25-29`): ratio = W/H; new_h = int(frame_width /
+    ratio), truncated."""
+    ratio = src_w / src_h
+    return frame_width, int(frame_width / ratio)
 
 
 def resize_bilinear_f32(src: torch.Tensor, dw: int, dh: int) -> torch.Tensor:

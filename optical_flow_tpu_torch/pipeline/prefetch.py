@@ -1,5 +1,6 @@
-"""Streamed decode with parallel segment readers and decode-ahead, and the
-chunk size of a device dispatch; a port of `optical_flow_tpu.pipeline.prefetch`.
+"""Streamed decode with parallel segment readers and decode-ahead, the
+upload of a decoded frame and the chunk size of a device dispatch; a port
+of `optical_flow_tpu.pipeline.prefetch`.
 
 The position list is split into contiguous segments, each decoded by its
 own native VideoReader on its own thread, feeding bounded queues that the
@@ -109,6 +110,15 @@ class DecodePrefetcher:
                         return         # failed read: drop the tail
         finally:
             self._stop.set()
+
+
+def upload(frame, device: torch.device) -> torch.Tensor:
+    """A decoded host frame to the device; to a card through pinned memory
+    and without waiting for the kernels already queued."""
+    t = torch.as_tensor(frame)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 _REF_DEVICE_BYTES = 16 << 30    # the 16 GiB chip the pixel budget was sized on

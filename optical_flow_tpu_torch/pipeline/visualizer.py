@@ -38,26 +38,11 @@ from optical_flow_tpu_torch.models.farneback.flow import \
     calc_flow_bgr_chain_batched
 from optical_flow_tpu_torch.ops.host import bgr2gray_host
 from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
-                                                      pair_chunk_for)
+                                                      pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (FarnebackConfig,
                                                  VisualizerConfig)
+from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
-
-
-def default_device() -> torch.device:
-    """The current CUDA card if there is one, else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
-def _upload(gray, device: torch.device) -> torch.Tensor:
-    """A host frame to the device; to a card through pinned memory and
-    without waiting for the kernels already queued."""
-    t = torch.as_tensor(gray)
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _download(bgr: torch.Tensor, ready, stream) -> np.ndarray:
@@ -86,9 +71,10 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     order.  Pairs go to the device `chunk_size` at a time as one chain
     (`calc_flow_bgr_chain_batched`), each chunk restacking the previous
     chunk's last frame; a chunk is downloaded once the next one is
-    dispatched.  `plain` as in calc_flow_batched.  Returns the number of
-    pairs written."""
-    device = default_device() if device is None else torch.device(device)
+    dispatched.  device: where the flow runs, by default the current card
+    (raises without one; "cpu" runs the plain versions).  `plain` as in
+    calc_flow_batched.  Returns the number of pairs written."""
+    device = resolve_device(device)
     metrics = metrics or PipelineMetrics("visualize")
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     stamps, gray, pend, inflight = [], [], [], []
@@ -122,7 +108,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     for pos, g in frames:
         stamps.append(pos)
         i = len(gray)
-        gray.append(_upload(g, device))
+        gray.append(upload(g, device))
         if i >= 1:
             pend.append(i)
             if len(pend) >= chunk_size:
@@ -142,8 +128,11 @@ def _write_planar(path: str, planar: np.ndarray, quality: int) -> None:
 
 
 def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
-                   config: Optional[VisualizerConfig] = None) -> int:
-    """Write flow/source JPEG pairs for one shot.  Returns #pairs written."""
+                   config: Optional[VisualizerConfig] = None, *,
+                   device=None) -> int:
+    """Write flow/source JPEG pairs for one shot.  Returns #pairs written.
+    device: as in visualize_frames (by default the current card)."""
+    device = resolve_device(device)
     config = config or VisualizerConfig()
     os.makedirs(images_path, exist_ok=True)
 
@@ -170,7 +159,6 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
     if len(positions) < 2:
         return 0
 
-    device = default_device()
     metrics = PipelineMetrics("visualize")
     prefetch = DecodePrefetcher(v_path, positions,
                                 transform=lambda f: (f, bgr2gray_host(f)))

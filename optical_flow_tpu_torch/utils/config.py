@@ -1,4 +1,4 @@
-"""Farnebäck and visualizer configuration, copies of
+"""Farnebäck, extractor and visualizer configuration, copies of
 `optical_flow_tpu.utils.config`.
 
 The copy exists because the card's machine has no JAX, and the JAX
@@ -51,6 +51,45 @@ class FarnebackConfig:
         if self.poly_n < 1:
             raise ValueError(f"poly_n must be >= 1, got {self.poly_n}")
         return self
+
+
+# Version stamp for .done sentinels, the reference's (`optical_flow.py:12`),
+# so that .done files of the reference, the JAX package and the port are
+# mutually accepted; format as `optical_flow.py:152`.
+EXTRACTOR = "opticalflow"
+VERSION = "20201209"
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractorConfig:
+    """Corpus-extractor parameters (reference `optical_flow.py:171-185`).
+
+    `force_run` is a *string* compared against 'True', the reference's
+    CLI contract (`optical_flow.py:154,182`).  `validate` logs one sampled
+    pair's EPE against cv2 per video; `resume` keeps a shot-granular
+    checkpoint (io/sidecar.py:ShotProgress).  Both are the JAX package's
+    additions to the reference.
+    """
+
+    frame_width: int = 129
+    step_size: int = 300          # milliseconds
+    window_size: int = 300        # milliseconds
+    top_percentile: int = 5
+    force_run: str = "False"
+    validate: bool = False
+    resume: bool = False
+    farneback: FarnebackConfig = dataclasses.field(default_factory=FarnebackConfig)
+
+    @property
+    def done_version(self) -> str:
+        """Content of the .done sentinel (`optical_flow.py:152`)."""
+        return (
+            VERSION
+            + "\n" + str(self.frame_width)
+            + "\n" + str(self.step_size)
+            + "\n" + str(self.window_size)
+            + "\n" + str(self.top_percentile)
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
+from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("optical_flow_tpu_torch.validate")
@@ -30,7 +31,9 @@ def sampled_epe(prev_gray: np.ndarray, next_gray: np.ndarray,
                 cfg: Optional[FarnebackConfig] = None,
                 device=None) -> Optional[float]:
     """Mean endpoint error of the port's flow vs cv2 on ONE uint8 grey
-    pair.  device: where the port's flow runs (by default the CPU)."""
+    pair.  device: where the port's flow runs (by default the current
+    card; "cpu" for the plain versions)."""
+    device = resolve_device(device)
     try:
         import cv2
     except ImportError:

@@ -30,6 +30,7 @@ from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+                                                          update_blur_poly,
                                                           update_matrices)
 from optical_flow_tpu_torch.models.farneback import core as tcore
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
@@ -207,8 +208,13 @@ def test_wrappers_on_cpu_are_the_plain_versions():
         assert torch.equal(update_flow_unfused(R0, R1, flow, 63, 2, gaussian), ref)
     with pytest.raises(ValueError):
         update_matrices(R0, R1, flow, out=M)          # out= is for CUDA tensors
+    for gaussian in (False, True):
+        assert torch.equal(update_blur_poly(img[:1], img[1:], flow[:1], 15, gaussian, 5, 1.2,
+                                            PRE_TAPS),
+                           tcore.update_step_poly(img[:1], img[1:], flow[:1], 15, gaussian,
+                                                  5, 1.2, PRE_TAPS))
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K6": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
 
 
 def _jax_gauss_sum(M, winsize):

@@ -5,9 +5,11 @@ input checks, the main path against the plain path on the CPU, the
 visualizer's chained pyramid and K4 colorization, the unfused iterate
 (K5a -> K5b) with the box and the Gaussian window, K1 with the Gaussian
 window, the box window beyond K1's tile, the seeded entry, K6 (the
-full-resolution Gaussian) at any tap count, and the configs whose levels
+full-resolution Gaussian) at any tap count, the configs whose levels
 K3 does not take (levels 4 and 5, pyr_scale 0.25) or whose expansion is
-wider than cv2's (poly_n 11).
+wider than cv2's (poly_n 11), and K7 (the step with the expansion derived
+in-kernel) against K2 -> K1 to the bit, alone, per level and on the
+whole path with FUSE_POLYEXP on.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -35,13 +37,17 @@ import torch
 from optical_flow_tpu_torch import kernels
 from optical_flow_tpu_torch.kernels.blur_solve import blur_solve
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
+from optical_flow_tpu_torch.kernels import fused_iterate
 from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
                                                           update_flow_fused,
+                                                          update_flow_fused_poly,
                                                           update_flow_unfused)
 from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
-from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, update_blur,
+from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, k7_fits,
+                                                          update_blur,
+                                                          update_blur_poly,
                                                           update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.flow import (
@@ -191,7 +197,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         blur_solve(R.double(), 15, True)
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K6": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
 
 
 @pytest.mark.parametrize("dtype", ["u8", "f32"])
@@ -229,14 +235,14 @@ def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 0, "K5a": 0, "K5b": 0,
-                                "K6": 0}
-    ref = calc_flow_batched(prev, nxt)
+                                "K6": 0, "K7": 0}
+    ref = calc_flow_batched(prev, nxt, device="cpu")
     d = (got.cpu() - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
     assert float(d.mean()) <= 1e-3
     sums = magnitude_sums(torch.as_tensor(prev).to(dev),
                           torch.as_tensor(nxt).to(dev), FarnebackConfig())
-    torch.testing.assert_close(sums.cpu(), magnitude_sums(prev, nxt),
+    torch.testing.assert_close(sums.cpu(), magnitude_sums(prev, nxt, device="cpu"),
                                rtol=1e-4, atol=0.0)
 
 
@@ -286,8 +292,8 @@ def test_chain_on_the_card(dev, h, w):
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 1, "K5a": 0, "K5b": 0,
-                                "K6": 0}
-    ref = calc_flow_bgr_chain_batched(frames).numpy()
+                                "K6": 0, "K7": 0}
+    ref = calc_flow_bgr_chain_batched(frames, device="cpu").numpy()
     d = np.abs(bgr.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
     assert (d > 0).mean() <= 1e-3
@@ -341,7 +347,7 @@ def test_blur_solve_kernel(dev, h, w, winsize, gaussian):
            core.update_flow(R0, R1, flow, winsize, 3, gaussian), STEP_TOL)
     assert torch.equal(flow, kept)            # the caller's flow is not written
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 3, "K5b": 4, "K6": 0}
+                                "K5a": 3, "K5b": 4, "K6": 0, "K7": 0}
 
 
 @pytest.mark.parametrize("winsize", [1, 3, 10, 15, 21, 61])
@@ -413,8 +419,8 @@ def test_unfused_path_on_the_card_matches_the_cpu(dev, h, w, flags, winsize):
     assert kernels.LAUNCHES == {"K1": steps if k1 else 0, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 0,
                                 "K5a": 0 if k1 else steps,
-                                "K5b": 0 if k1 else steps, "K6": 0}
-    _share_close(got, calc_flow_batched(prev, nxt, cfg, seed))
+                                "K5b": 0 if k1 else steps, "K6": 0, "K7": 0}
+    _share_close(got, calc_flow_batched(prev, nxt, cfg, seed, device="cpu"))
 
 
 @pytest.mark.parametrize("flags", [4, 260])
@@ -461,7 +467,7 @@ def test_deep_configs_on_the_card_match_the_plain_path(dev, h, w, config):
     n_k6 = _k6_levels(h, w, cfg)
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1 - n_k6, "K4": 0, "K5a": 0,
-                                "K5b": 0, "K6": n_k6}
+                                "K5b": 0, "K6": n_k6, "K7": 0}
     _share_close(got, calc_flow_batched(prev, nxt, cfg, plain=True))
 
 
@@ -475,4 +481,144 @@ def test_deep_configs_on_the_card_match_the_cpu(dev, h, w, config):
     cfg = FarnebackConfig(**config)
     got = calc_flow_batched(prev, nxt, cfg, device=dev)
     assert kernels.LAUNCHES["K6"] == _k6_levels(h, w, cfg) > 0
-    _share_close(got, calc_flow_batched(prev, nxt, cfg))
+    _share_close(got, calc_flow_batched(prev, nxt, cfg, device="cpu"))
+
+
+def _poly_operands(dev, h, w, kind, amplitude, B=2):
+    """Level images of a texture pair (uint8 with the level-0 pre-smooth,
+    or f32) and a random flow of up to `amplitude` px."""
+    f1, f2 = smooth_texture_pair(h, w, (1, 2))
+    img0 = np.stack([f1, f2] * B)[:B]
+    img1 = np.stack([f2, f1] * B)[:B]
+    pre = PRE_TAPS if kind.endswith("pre") else None
+    if kind.startswith("f32"):
+        img0 = img0.astype(np.float32) * 0.7 + 3.0
+        img1 = img1.astype(np.float32) * 0.7 + 3.0
+    rng = np.random.default_rng(h * w + int(amplitude))
+    flow = ((rng.random((B, 2, h, w)) - 0.5) * 2 * amplitude).astype(np.float32)
+    return (torch.as_tensor(img0).to(dev), torch.as_tensor(img1).to(dev),
+            torch.as_tensor(flow).to(dev), pre)
+
+
+def _k7_against_k2_k1(dev, h, w, winsize, gaussian, poly_n, kind):
+    sigma = 0.3 * poly_n
+    for amplitude in (6.0, 40.0):     # fetches beyond the image at ±40 px
+        img0, img1, flow, pre = _poly_operands(dev, h, w, kind, amplitude)
+        kernels.reset_launches()
+        got = update_blur_poly(img0, img1, flow, winsize, gaussian, poly_n, sigma, pre)
+        R0 = poly_exp(img0, poly_n, sigma, pre_taps=pre)
+        R1 = poly_exp(img1, poly_n, sigma, pre_taps=pre)
+        ref = update_blur(R0, R1, flow, winsize, gaussian)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+        assert kernels.LAUNCHES["K7"] == 1
+        _close(got, core.update_step_poly(img0, img1, flow, winsize, gaussian,
+                                          poly_n, sigma, pre), STEP_TOL)
+
+
+K7_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
+              (61, False), (61, True)]
+
+
+@pytest.mark.parametrize("kind", ["u8_pre", "f32", "f32_pre"])
+@pytest.mark.parametrize("winsize,gaussian", K7_WINDOWS)
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (33, 130)])
+def test_update_blur_poly_kernel(dev, h, w, winsize, gaussian, kind):
+    """K7 at poly_n 5 against K2 -> K1 on the same inputs, to the bit, and
+    against its plain version; frames smaller than a tile and odd sizes."""
+    _k7_against_k2_k1(dev, h, w, winsize, gaussian, 5, kind)
+
+
+@pytest.mark.parametrize("kind", ["u8_pre", "f32"])
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("winsize", [15, 61])
+@pytest.mark.parametrize("poly_n", [3, 7])
+def test_update_blur_poly_kernel_poly_n(dev, poly_n, winsize, gaussian, kind):
+    _k7_against_k2_k1(dev, 37, 53, winsize, gaussian, poly_n, kind)
+
+
+def test_update_blur_poly_rejects_what_it_does_not_take(dev):
+    img0, img1, flow, pre = _poly_operands(dev, 20, 32, "u8_pre", 6.0)
+    assert not k7_fits(63, 5) and k7_fits(61, 5) and k7_fits(61, 7)
+    with pytest.raises(ValueError):
+        update_blur_poly(img0, img1, flow, 63, False, 5, 1.2, pre)   # beyond the tile
+    with pytest.raises(ValueError):
+        update_blur_poly(img0, img1, flow, 15, False, 97, 1.2, pre)  # poly_n
+    with pytest.raises(TypeError):
+        update_blur_poly(img0, img1.float(), flow, 15, False, 5, 1.2, pre)
+    with pytest.raises(ValueError):
+        update_blur_poly(img0, img1[:, :10].contiguous(), flow, 15, False, 5, 1.2, pre)
+    with pytest.raises(ValueError):
+        update_blur_poly(img0, img1, flow, 15, False, 5, 1.2, pre, out=flow)
+    with pytest.raises(ValueError):
+        update_blur_poly(img0, img1, flow, 1, True, 5, 1.2, pre)     # sigma-0 window
+    with pytest.raises(ValueError):
+        update_blur_poly(img0[:, :1].contiguous(), img1[:, :1].contiguous(),
+                         flow[:, :, :1].contiguous(), 15, False, 5, 1.2, pre)  # 1 row
+    assert kernels.LAUNCHES["K7"] == 0
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+def test_update_flow_fused_poly_equals_k2_k1(dev, gaussian):
+    """A 3-step level on K7 equals K2 once, then 3 K1 steps, to the bit."""
+    img0, img1, flow, pre = _poly_operands(dev, 72, 129, "u8_pre", 6.0)
+    kept = flow.clone()
+    got = update_flow_fused_poly(img0, img1, flow, 15, 3, gaussian, poly_n=5,
+                                 poly_sigma=1.2, pre_taps=pre)
+    ref = update_flow_fused(poly_exp(img0, 5, 1.2, pre_taps=pre),
+                            poly_exp(img1, 5, 1.2, pre_taps=pre), flow, 15, 3, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(flow, kept)
+    assert kernels.LAUNCHES["K7"] == 3
+
+
+@pytest.mark.parametrize("chain", [False, True])
+@pytest.mark.parametrize("flags", [0, 256])
+def test_fuse_polyexp_switch_on_the_card(dev, monkeypatch, flags, chain):
+    """calc_flow_batched (and the chain) with FUSE_POLYEXP on: every level
+    on K7, no K2 and no K1, and the flow of the switch-off run to the
+    bit."""
+    f1, f2 = smooth_texture_pair(96, 128, (2, 3))
+    frames = torch.as_tensor(np.stack([f1, f2, f1])).to(dev)
+    cfg = FarnebackConfig(flags=flags)
+
+    def run():
+        if chain:
+            return calc_flow_chain_batched(frames, cfg)
+        return calc_flow_batched(frames[:2], frames[1:], cfg)
+
+    off = run()
+    monkeypatch.setattr(fused_iterate, "FUSE_POLYEXP", True)
+    kernels.reset_launches()
+    on = run()
+    torch.cuda.synchronize()
+    n_levels = len(build_plan(96, 128, cfg).levels)
+    assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": n_levels - 1, "K4": 0,
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 3 * n_levels}
+    assert torch.equal(on, off)
+
+
+def test_extract_frames_on_the_card(dev):
+    """The extractor's device loop on the card (chunks of 3 pairs, frames
+    uploaded one by one through pinned memory) against the plain path on
+    the card and on the CPU: the same windows, sums within 1e-4 rel."""
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    windows, _ = extractor._window_schedule(60, 25.0, 300, 300)
+    todo = list(enumerate(windows))
+    needed = sorted({f for _, win in todo for f in win})
+    seq = list(zip(needed, translating_clip(72, 129, [min(f, 40) for f in needed])))
+
+    def run(**kw):
+        return extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=3, **kw)
+
+    got = run(device=dev)
+    assert kernels.LAUNCHES["K1"] > 0 and kernels.LAUNCHES["K7"] == 0
+    for ref in (run(device=dev, plain=True), run(device="cpu")):
+        assert sorted(got) == sorted(ref) == list(range(len(todo)))
+        for i, (s, e, v) in got.items():
+            assert (s, e) == ref[i][:2]
+            assert abs(v - ref[i][2]) <= 1e-4 * abs(ref[i][2])

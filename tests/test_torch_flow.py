@@ -72,10 +72,10 @@ def assert_flow_close(got, ref, share=SHARE):
 def test_calc_flow_batched_matches_jax(h, w, kind):
     prev, nxt = _batch(kind, h, w)
     ref = jax_flow(jnp.asarray(prev), jnp.asarray(nxt))
-    got = calc_flow_batched(prev, nxt, FarnebackConfig())
+    got = calc_flow_batched(prev, nxt, FarnebackConfig(), device="cpu")
     assert got.shape == (2, h, w, 2)
     assert_flow_close(got.numpy(), ref)
-    sums = magnitude_sums(prev, nxt, FarnebackConfig()).numpy()
+    sums = magnitude_sums(prev, nxt, FarnebackConfig(), device="cpu").numpy()
     np.testing.assert_allclose(sums, _jax_sums(ref), rtol=1e-4)
 
 
@@ -105,7 +105,7 @@ def test_calc_flow_batched_flags_match_jax(h, w, kind, flags):
     seed = seed_flow(2, h, w)
     ref = jax_flow(jnp.asarray(prev), jnp.asarray(nxt), JaxConfig(flags=flags),
                    initial_flow=jnp.asarray(seed))
-    got = calc_flow_batched(prev, nxt, FarnebackConfig(flags=flags), seed)
+    got = calc_flow_batched(prev, nxt, FarnebackConfig(flags=flags), seed, device="cpu")
     assert got.shape == (2, h, w, 2)
     assert_flow_close(got.numpy(), ref)
 
@@ -127,7 +127,7 @@ def test_rough_seed_flip_stays_local():
     cfg = FarnebackConfig(flags=4)
     ref = np.asarray(jax_flow(jnp.asarray(prev), jnp.asarray(nxt),
                               JaxConfig(flags=4), initial_flow=jnp.asarray(seed)))
-    got = calc_flow_batched(prev, nxt, cfg, seed).numpy()
+    got = calc_flow_batched(prev, nxt, cfg, seed, device="cpu").numpy()
     assert np.isfinite(got).all()
     d = np.abs(got - ref)
     assert d.mean() <= 1e-3, f"mean |diff| {d.mean()}"
@@ -148,7 +148,8 @@ def test_calc_flow_batched_window_sizes_match_jax(winsize):
     for flags in (0, 256):
         ref = jax_flow(jnp.asarray(prev), jnp.asarray(nxt),
                        JaxConfig(winsize=winsize, flags=flags))
-        got = calc_flow_batched(prev, nxt, FarnebackConfig(winsize=winsize, flags=flags))
+        got = calc_flow_batched(prev, nxt, FarnebackConfig(winsize=winsize, flags=flags),
+                                device="cpu")
         assert_flow_close(got.numpy(), ref)
 
 
@@ -166,7 +167,7 @@ def test_deep_and_wide_configs_match_jax(config):
     the JAX package."""
     f1, f2 = smooth_texture_pair(512, 512, (2, 3))
     ref = jax_flow(jnp.asarray(f1[None]), jnp.asarray(f2[None]), JaxConfig(**config))
-    got = calc_flow_batched(f1[None], f2[None], FarnebackConfig(**config))
+    got = calc_flow_batched(f1[None], f2[None], FarnebackConfig(**config), device="cpu")
     assert got.shape == (1, 512, 512, 2)
     assert_flow_close(got.numpy(), ref)
 
@@ -178,10 +179,11 @@ def test_calc_flow_matches_jax(flags):
     seed = seed_flow(1, 72, 129)[0]
     ref = jax_calc_flow(jnp.asarray(f1), jnp.asarray(f2), JaxConfig(flags=flags),
                         initial_flow=jnp.asarray(seed))
-    got = calc_flow(f1, f2, FarnebackConfig(flags=flags), seed)
+    got = calc_flow(torch.as_tensor(f1), torch.as_tensor(f2), FarnebackConfig(flags=flags), seed)
     assert got.shape == (72, 129, 2)
     assert_flow_close(got.numpy(), ref)
-    batch = calc_flow_batched(f1[None], f2[None], FarnebackConfig(flags=flags), seed[None])
+    batch = calc_flow_batched(f1[None], f2[None], FarnebackConfig(flags=flags), seed[None],
+                              device="cpu")
     assert torch.equal(got, batch[0])
 
 
@@ -192,25 +194,27 @@ def test_calc_flow_batched_rejects_what_is_not_ported():
     NaN everywhere."""
     prev, nxt = _batch("smooth", 72, 129)
     with pytest.raises(ValueError):
-        calc_flow_batched(prev, nxt[:, :-1])
+        calc_flow_batched(prev, nxt[:, :-1], device="cpu")
     with pytest.raises(ValueError):
-        calc_flow_batched(prev[0], nxt[0])
+        calc_flow_batched(prev[0], nxt[0], device="cpu")
     for flags in (4, 260):
         with pytest.raises(ValueError, match="initial_flow"):
             jax_flow(jnp.asarray(prev), jnp.asarray(nxt), JaxConfig(flags=flags))
         with pytest.raises(ValueError, match="initial_flow"):
-            calc_flow_batched(prev, nxt, FarnebackConfig(flags=flags))
+            calc_flow_batched(prev, nxt, FarnebackConfig(flags=flags), device="cpu")
         with pytest.raises(ValueError, match="initial_flow"):
-            calc_flow(prev[0], nxt[0], FarnebackConfig(flags=flags))
+            calc_flow(torch.as_tensor(prev[0]), torch.as_tensor(nxt[0]),
+                      FarnebackConfig(flags=flags))
     with pytest.raises(ValueError):
-        calc_flow_batched(prev, nxt, FarnebackConfig(flags=4), seed_flow(2, 72, 128))
+        calc_flow_batched(prev, nxt, FarnebackConfig(flags=4), seed_flow(2, 72, 128),
+                          device="cpu")
     with pytest.raises(ValueError):
-        calc_flow(prev, nxt)                                  # (B, H, W)
+        calc_flow(torch.as_tensor(prev), torch.as_tensor(nxt))  # (B, H, W)
     ref = np.asarray(jax_flow(jnp.asarray(prev), jnp.asarray(nxt),
                               JaxConfig(winsize=1, flags=256)))
     assert np.isnan(ref).all()
     with pytest.raises(ValueError, match="sigma 0"):
-        calc_flow_batched(prev, nxt, FarnebackConfig(winsize=1, flags=256))
+        calc_flow_batched(prev, nxt, FarnebackConfig(winsize=1, flags=256), device="cpu")
 
 
 def test_golden_file_is_current():
@@ -255,9 +259,9 @@ def test_port_matches_golden_at_72x129():
     g = json.loads(Path(GOLDEN).read_text())["72x129"]
     f1, f2 = smooth_texture_pair(72, 129, tuple(g["shift"]))
     prev, nxt = f1[None], f2[None]
-    sums = magnitude_sums(prev, nxt).numpy()
+    sums = magnitude_sums(prev, nxt, device="cpu").numpy()
     np.testing.assert_allclose(sums, [g["mag_sum"]], rtol=1e-4)
-    flow = calc_flow_batched(prev, nxt).numpy()[0]
+    flow = calc_flow_batched(prev, nxt, device="cpu").numpy()[0]
     samples = flow[g["sample_y"], g["sample_x"]]
     assert (np.abs(samples - np.asarray(g["sample_flow"])) <= 2e-3).mean() >= 0.99
 
@@ -268,9 +272,9 @@ def test_port_gaussian_matches_golden_at_72x129():
     g = json.loads(Path(GOLDEN).read_text())["gaussian_72x129"]
     f1, f2 = smooth_texture_pair(72, 129, tuple(g["shift"]))
     cfg = FarnebackConfig(flags=g["flags"])
-    sums = magnitude_sums(f1[None], f2[None], cfg).numpy()
+    sums = magnitude_sums(f1[None], f2[None], cfg, device="cpu").numpy()
     np.testing.assert_allclose(sums, [g["mag_sum"]], rtol=1e-4)
-    flow = calc_flow_batched(f1[None], f2[None], cfg).numpy()[0]
+    flow = calc_flow_batched(f1[None], f2[None], cfg, device="cpu").numpy()[0]
     samples = flow[g["sample_y"], g["sample_x"]]
     assert (np.abs(samples - np.asarray(g["sample_flow"])) <= 2e-3).mean() >= 0.99
     np.testing.assert_array_equal(seed_flow(3, 8, 9)[0], seed_flow(1, 8, 9)[0])
@@ -281,6 +285,6 @@ def test_port_chain_bgr_matches_golden_at_72x129():
     through the plain path: the sampled bytes of [f1, f2, f1]."""
     g = json.loads(Path(GOLDEN).read_text())["chain_bgr_72x129"]
     f1, f2 = smooth_texture_pair(72, 129, tuple(g["shift"]))
-    bgr = calc_flow_bgr_chain_batched(np.stack([f1, f2, f1])).numpy()
+    bgr = calc_flow_bgr_chain_batched(np.stack([f1, f2, f1]), device="cpu").numpy()
     samples = bgr[:, :, g["sample_y"], g["sample_x"]]
     assert (samples != np.asarray(g["sample_bgr"])).mean() <= 1e-2

@@ -90,6 +90,22 @@ def test_visualizer_config_matches_jax():
         t.step_size = 1
 
 
+@pytest.mark.parametrize("kw", [{}, {"frame_width": 0, "step_size": 600,
+                                    "window_size": 1200, "top_percentile": 10,
+                                    "force_run": "True", "resume": True}])
+def test_extractor_config_matches_jax(kw):
+    """The same fields and defaults, and the same .done content, which the
+    reference, the JAX package and the port accept from one another."""
+    t, j = tconfig.ExtractorConfig(**kw), jconfig.ExtractorConfig(**kw)
+    assert ([f.name for f in dataclasses.fields(t)]
+            == [f.name for f in dataclasses.fields(j)])
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.done_version == j.done_version
+    assert (tconfig.EXTRACTOR, tconfig.VERSION) == (jconfig.EXTRACTOR, jconfig.VERSION)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        t.frame_width = 1
+
+
 def test_config_validate_rejects_like_jax():
     for bad in ({"pyr_scale": 1.0}, {"levels": 0}, {"winsize": 0},
                 {"iterations": 0}, {"poly_n": 0}):

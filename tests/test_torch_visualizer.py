@@ -54,27 +54,27 @@ def _chain_frames():
 
 def test_calc_flow_chain_batched_matches_jax():
     frames = _chain_frames()
-    got = tflow.calc_flow_chain_batched(frames)
+    got = tflow.calc_flow_chain_batched(frames, device="cpu")
     assert got.shape == (3, 72, 129, 2) and got.dtype == torch.float32
     assert_flow_close(got.numpy(), jflow.calc_flow_chain_batched(jnp.asarray(frames)))
-    assert torch.equal(got, tflow.calc_flow_batched(frames[:-1], frames[1:]))
+    assert torch.equal(got, tflow.calc_flow_batched(frames[:-1], frames[1:], device="cpu"))
 
 
 def test_calc_flow_bgr_chain_batched_matches_jax():
     frames = _chain_frames()
-    got = tflow.calc_flow_bgr_chain_batched(frames).numpy()
+    got = tflow.calc_flow_bgr_chain_batched(frames, device="cpu").numpy()
     ref = np.asarray(jflow.calc_flow_bgr_chain_batched(jnp.asarray(frames)))
     assert got.shape == ref.shape == (3, 3, 72, 129) and got.dtype == np.uint8
     assert (got != ref).mean() <= 1e-3
     # the pair entry gives the same bytes for the same pairs
-    pairs = tflow.calc_flow_bgr_batched(frames[:-1], frames[1:]).numpy()
+    pairs = tflow.calc_flow_bgr_batched(frames[:-1], frames[1:], device="cpu").numpy()
     np.testing.assert_array_equal(pairs, got)
 
 
 def test_calc_flow_bgr_batched_matches_jax():
     f1, f2 = smooth_texture_pair(72, 129, (2, 3))
     prev, nxt = np.stack([f1, f2]), np.stack([f2, f1])
-    got = tflow.calc_flow_bgr_batched(prev, nxt).numpy()
+    got = tflow.calc_flow_bgr_batched(prev, nxt, device="cpu").numpy()
     ref = np.asarray(jflow.calc_flow_bgr_batched(jnp.asarray(prev), jnp.asarray(nxt)))
     assert got.shape == ref.shape == (2, 3, 72, 129)
     assert (got != ref).mean() <= 1e-3
@@ -84,11 +84,11 @@ def test_chain_entries_reject_like_jax():
     frames = _chain_frames()
     for fn in (tflow.calc_flow_chain_batched, tflow.calc_flow_bgr_chain_batched):
         with pytest.raises(ValueError):
-            fn(frames[0])                              # (H, W)
+            fn(frames[0], device="cpu")                # (H, W)
         with pytest.raises(ValueError):
-            fn(frames[:1])                             # one frame
+            fn(frames[:1], device="cpu")               # one frame
     with pytest.raises(ValueError):
-        tflow.calc_flow_bgr_batched(frames[:2], frames[1:])
+        tflow.calc_flow_bgr_batched(frames[:2], frames[1:], device="cpu")
 
 
 @pytest.mark.parametrize("flags", [256, 4])
@@ -96,16 +96,17 @@ def test_chain_entries_take_the_flags_like_jax(flags):
     """The Gaussian window runs through the chain; the chained pairs carry
     no seed, so flags 4 starts from zero flow, as in the JAX package."""
     frames = _chain_frames()
-    got = tflow.calc_flow_bgr_chain_batched(frames, FarnebackConfig(flags=flags)).numpy()
+    got = tflow.calc_flow_bgr_chain_batched(frames, FarnebackConfig(flags=flags),
+                                            device="cpu").numpy()
     ref = np.asarray(jflow.calc_flow_bgr_chain_batched(
         jnp.asarray(frames), JaxConfig(flags=flags)))
     assert got.shape == ref.shape == (3, 3, 72, 129)
     assert (got != ref).mean() <= 1e-3
-    chain = tflow.calc_flow_chain_batched(frames, FarnebackConfig(flags=flags))
+    chain = tflow.calc_flow_chain_batched(frames, FarnebackConfig(flags=flags), device="cpu")
     assert_flow_close(chain.numpy(), jflow.calc_flow_chain_batched(
         jnp.asarray(frames), JaxConfig(flags=flags)))
     if flags == 4:
-        assert torch.equal(chain, tflow.calc_flow_chain_batched(frames))
+        assert torch.equal(chain, tflow.calc_flow_chain_batched(frames, device="cpu"))
 
 
 def _gray_sequence(n, h=40, w=56):
@@ -123,7 +124,7 @@ def test_visualize_frames_chunks_give_one_chain(chunk):
                                     chunk_size=chunk, device="cpu")
     assert n == 6
     assert [p for p, _ in got] == [p for p, _ in seq[1:]]
-    ref = tflow.calc_flow_bgr_chain_batched(np.stack([g for _, g in seq])).numpy()
+    ref = tflow.calc_flow_bgr_chain_batched(np.stack([g for _, g in seq]), device="cpu").numpy()
     np.testing.assert_array_equal(np.stack([b for _, b in got]), ref)
 
 
@@ -151,7 +152,7 @@ def test_visualize_shot_matches_jax(clip, tmp_path):
     from optical_flow_tpu.pipeline.visualizer import visualize_shot as jax_visualize_shot
 
     port, ref = tmp_path / "port", tmp_path / "jax"
-    n = visualizer.visualize_shot(clip, str(port), *SHOT)
+    n = visualizer.visualize_shot(clip, str(port), *SHOT, device="cpu")
     assert n == jax_visualize_shot(clip, str(ref), *SHOT) == 4
     names = sorted(os.listdir(port))
     assert names == sorted(os.listdir(ref))
@@ -174,12 +175,13 @@ def test_visualize_shot_degenerate_inputs(clip, tmp_path):
     bad = tmp_path / "bad.mp4"
     bad.write_bytes(b"not a video")
     out = tmp_path / "out"
-    assert visualizer.visualize_shot(str(bad), str(out), 0, 1000) == 0
+    assert visualizer.visualize_shot(str(bad), str(out), 0, 1000, device="cpu") == 0
     assert out.is_dir() and os.listdir(out) == []
     with pytest.raises(ValueError):       # 10 ms is shorter than a frame at 25 fps
         visualizer.visualize_shot(clip, str(out), *SHOT,
-                                  config=VisualizerConfig(step_size=10))
-    assert visualizer.visualize_shot(clip, str(out), 200, 300) == 0   # one sample
+                                  config=VisualizerConfig(step_size=10), device="cpu")
+    assert visualizer.visualize_shot(clip, str(out), 200, 300,
+                                     device="cpu") == 0   # one sample
 
 
 def test_visualize_shot_validate_matches_jax(clip, tmp_path, monkeypatch):
@@ -201,7 +203,8 @@ def test_visualize_shot_validate_matches_jax(clip, tmp_path, monkeypatch):
     recording(visualizer, "port")
     recording(jvis, "jax")
     cfg = VisualizerConfig(validate=True)
-    assert visualizer.visualize_shot(clip, str(tmp_path / "p"), *SHOT, config=cfg) == 4
+    assert visualizer.visualize_shot(clip, str(tmp_path / "p"), *SHOT, config=cfg,
+                                     device="cpu") == 4
     from optical_flow_tpu.utils.config import VisualizerConfig as JaxVisualizerConfig
     assert jvis.visualize_shot(clip, str(tmp_path / "j"), *SHOT,
                                config=JaxVisualizerConfig(validate=True)) == 4
@@ -227,7 +230,7 @@ def test_sampled_epe_without_cv2(monkeypatch):
 
     monkeypatch.setattr(builtins, "__import__", no_cv2)
     f1, f2 = smooth_texture_pair(40, 56, (1, 2))
-    assert validate.sampled_epe(f1, f2) is None
+    assert validate.sampled_epe(f1, f2, device="cpu") is None
     validate.log_validation(None, "t")
     validate.log_validation(0.7, "t")
 
@@ -236,17 +239,26 @@ def test_cli_parser_matches_jax(clip, tmp_path):
     from optical_flow_tpu.cli import visualize_optical_flow as jcli
     from optical_flow_tpu_torch.cli import visualize_optical_flow as tcli
 
+    argv = ["/v/clip.mp4", "/out", "100", "2000", "--validate"]
+    assert_parser_matches_jax(tcli.build_parser(), jcli.build_parser(), argv)
+    out = tmp_path / "cli"
+    tcli.main([clip, str(out), str(SHOT[0]), str(SHOT[1]), "--device", "cpu"])
+    assert len(os.listdir(out)) == 8
+
+
+def assert_parser_matches_jax(port, jax, argv):
+    """Every action of the JAX parser, and the same parse of `argv`; the
+    port's one more action is `--device`, default "cuda"."""
     def spec(parser):
         return [(a.dest, a.type, a.default, a.required, a.nargs, a.const)
-                for a in parser._actions]
+                for a in parser._actions if a.dest != "device"]
 
-    assert spec(tcli.build_parser()) == spec(jcli.build_parser())
-    argv = ["/v/clip.mp4", "/out", "100", "2000", "--validate"]
-    assert (vars(tcli.build_parser().parse_args(argv))
-            == vars(jcli.build_parser().parse_args(argv)))
-    out = tmp_path / "cli"
-    tcli.main([clip, str(out), str(SHOT[0]), str(SHOT[1])])
-    assert len(os.listdir(out)) == 8
+    assert spec(port) == spec(jax)
+    assert [a.default for a in port._actions if a.dest == "device"] == ["cuda"]
+    got = vars(port.parse_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(jax.parse_args(argv))
+    assert port.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
 def test_video_reader_and_jpeg_match_jax(clip, tmp_path):
