@@ -7,7 +7,9 @@ Run from the repo root on a machine with an NVIDIA H100:
 
 It builds the eight CUDA kernels from `optical_flow_tpu_torch/csrc/`
 (one nvcc per source, in parallel) and holds each against its plain
-PyTorch version at the shapes of the 1080p B=16 paths (K5a, K5b and K1,
+PyTorch version at the shapes of the 1080p B=16 paths (the K1 and K3
+lines also carry ptxas's registers, spills and shared memory per kernel
+and the blocks resident per SM; K5a, K5b and K1,
 box and Gaussian, also at one 4320x7680 level; K6 at the two levels of a
 five-level 1080p pyramid that K3 does not take; K2 also at poly_n 11; K7,
 box and Gaussian, at every level, and equal to K2 -> K1 to the bit),
@@ -335,12 +337,69 @@ def run_cases(kid: str, cases, stats, key=None, phase=None, **extra) -> None:
                          "library_ms": sums["library_ms"] if has_library else None}
     emit(phase or f"kernel_{kid}", name=KERNEL_INFO[kid][0], atol=atol, rtol=rtol,
          levels=levels, ms_sum=sums["ms"], plain_ms_sum=sums["plain_ms"],
-         bound_ms_sum=sums["bound_ms"], **extra)
+         bound_ms_sum=sums["bound_ms"],
+         bound_share=sums["bound_ms"] / sums["ms"] if sums["ms"] else None, **extra)
+
+
+def ptxas_report(name: str) -> list:
+    """What ptxas says of each kernel of csrc/<name>.cu (registers a
+    thread, spill bytes, static shared memory), from a build with
+    -Xptxas -v into a scratch file beside the built libraries."""
+    from optical_flow_tpu_torch.kernels import _build
+    out = _build.build_dir() / f"ptxas_{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    log = subprocess.run(_build.nvcc_command(name, out) + ["-Xptxas", "-v"],
+                         capture_output=True, text=True, timeout=600, check=True)
+    out.unlink(missing_ok=True)
+    rows, entry = [], None
+    for line in (log.stdout + log.stderr).splitlines():
+        if "Compiling entry function" in line:
+            entry = {"kernel": line.split("'")[1][:60]}
+            rows.append(entry)
+        elif entry is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            entry["stack_bytes"], entry["spill_store_bytes"], entry["spill_load_bytes"] = nums[:3]
+        elif entry is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            entry["registers"] = int(words[words.index("Used") + 1])
+            entry["static_smem_bytes"] = next(
+                (int(words[i - 2]) for i, w in enumerate(words) if w == "smem"), 0)
+    return rows
+
+
+def occupancy_k1(winsize: int, dev) -> dict:
+    """K1's dynamic shared memory per block and resident blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), box and Gaussian."""
+    import ctypes
+    from optical_flow_tpu_torch.kernels import _build
+    f = _build.library("update_blur").oft_update_blur_occupancy
+    out = {}
+    for gauss in (0, 1):
+        blocks, smem = ctypes.c_int(), ctypes.c_int()
+        require(f(winsize // 2, gauss, dev.index, ctypes.byref(blocks),
+                  ctypes.byref(smem)) == 0, "K1 occupancy query")
+        out["gaussian" if gauss else "box"] = {"smem_bytes": smem.value,
+                                               "blocks_per_sm": blocks.value}
+    return out
+
+
+def occupancy_k3(src_u8: bool, smem: int, dev) -> int:
+    """K3's resident blocks per SM at `smem` bytes of shared memory."""
+    import ctypes
+    from optical_flow_tpu_torch.kernels import _build
+    blocks = ctypes.c_int()
+    f = _build.library("gauss_resize").oft_gauss_resize_occupancy
+    require(f(int(src_u8), smem, dev.index, ctypes.byref(blocks)) == 0,
+            "K3 occupancy query")
+    return blocks.value
 
 
 def kernel_phases(prev, nxt, cfg, stats) -> None:
-    """Each kernel against its plain version at the 1080p B=16 shapes."""
+    """Each kernel against its plain version at the 1080p B=16 shapes; K1
+    and K3 also with ptxas's report and their occupancy."""
     import torch
+    from optical_flow_tpu_torch.kernels import gauss_resize as k3
+    from optical_flow_tpu_torch.kernels import update_gather as k1
     from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
     from optical_flow_tpu_torch.kernels.update_gather import update_blur
@@ -351,19 +410,27 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
     dev = both.device
     plan = build_plan(prev.shape[1], prev.shape[2], cfg)
     imgs = {}
-    k3 = []
+    k3_cases = []
     for lv in plan.levels:
         if lv.k == 0:
             continue
         kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
         imgs[lv.k] = gauss_resize(both, kern, lv.width, lv.height)
         lib = library_level(kern, lv.height, lv.width, dev)
-        k3.append((f"L{lv.k}",
-                   lambda kern=kern, lv=lv: gauss_resize(both, kern, lv.width, lv.height),
-                   lambda kern=kern, lv=lv: core.gaussian_blur_resize(both, kern, lv.width, lv.height),
-                   work_level(both, len(kern), lv.height, lv.width),
-                   lambda lib=lib: lib(both)))
-    run_cases("K3", k3, stats)
+        k3_cases.append((f"L{lv.k}",
+                         lambda kern=kern, lv=lv: gauss_resize(both, kern, lv.width, lv.height),
+                         lambda kern=kern, lv=lv: core.gaussian_blur_resize(both, kern, lv.width,
+                                                                            lv.height),
+                         work_level(both, len(kern), lv.height, lv.width),
+                         lambda lib=lib: lib(both)))
+    k3_tiles = {}
+    for lv in (lv for lv in plan.levels if lv.k > 0):
+        tw, th, _, _, _, smem = k3._tile(lv.smooth_ksize, *both.shape[1:], lv.height,
+                                         lv.width, both.element_size())
+        k3_tiles[f"L{lv.k}"] = {"tile": [tw, th], "smem_bytes": smem,
+                                "blocks_per_sm": occupancy_k3(True, smem, dev)}
+    run_cases("K3", k3_cases, stats, ptxas=ptxas_report("gauss_resize"),
+              tiles=k3_tiles)
 
     Rs = {}
     k2 = []
@@ -385,17 +452,21 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
     run_cases("K2", k2, stats)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    k1 = []
+    k1_cases = []
     flows = {}
     for lv in plan.levels:
         R = Rs[lv.k]
         B = R.shape[0] // 2
         flow = flows[lv.k] = random_flow((B, 2, lv.height, lv.width), gen, dev)
-        k1.append((f"L{lv.k}",
-                   lambda R=R, B=B, flow=flow: update_blur(R[:B], R[B:], flow, cfg.winsize),
-                   lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow, cfg.winsize),
-                   work_step(flow, cfg.winsize, False), None))
-    run_cases("K1", k1, stats)
+        k1_cases.append((f"L{lv.k}",
+                         lambda R=R, B=B, flow=flow: update_blur(R[:B], R[B:], flow, cfg.winsize),
+                         lambda R=R, B=B, flow=flow: core.update_step(R[:B], R[B:], flow,
+                                                                      cfg.winsize),
+                         work_step(flow, cfg.winsize, False), None))
+    run_cases("K1", k1_cases, stats, ptxas=ptxas_report("update_blur"),
+              occupancy=occupancy_k1(cfg.winsize, dev),
+              rows_per_block={f"L{lv.k}": k1._rows_per_block(
+                  prev.shape[0], lv.height, lv.width, dev) for lv in plan.levels})
     kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats)
     del imgs
     unfused_phases(Rs, flows, plan, cfg.winsize, stats)

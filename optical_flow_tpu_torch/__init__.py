@@ -17,3 +17,11 @@ initialises no CUDA context and builds no kernel.
 """
 
 __version__ = "0.1.0"
+
+from optical_flow_tpu_torch.utils.config import FarnebackConfig, ExtractorConfig
+
+__all__ = [
+    "FarnebackConfig",
+    "ExtractorConfig",
+    "__version__",
+]

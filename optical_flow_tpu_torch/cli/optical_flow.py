@@ -8,9 +8,10 @@ and with `optical_flow_tpu.cli.optical_flow`:
 Same positional and flag names, same defaults, the same string-typed
 --force_run; `--device` (default `cuda`, the current card, which raises
 where there is none; `cpu` runs the plain PyTorch versions) is the
-port's.  The JAX CLI's persistent compile cache, debug-NaN switch and
-jax.distributed start-up have no counterpart here; `--num_workers` and
-`--worker_index` shard the corpus.  A progress bar shows where `tqdm` is
+port's.  The JAX CLI's persistent compile cache and debug-NaN switch
+have no counterpart here.  `--num_workers` and `--worker_index` shard the
+corpus; without them, OFT_COORDINATOR_ADDRESS, OFT_NUM_PROCESSES and
+OFT_PROCESS_ID do, as for the JAX CLI (`parallel/corpus.py`).  A progress bar shows where `tqdm` is
 installed.
 """
 
@@ -18,7 +19,8 @@ from __future__ import annotations
 
 import argparse
 
-from optical_flow_tpu_torch.parallel.corpus import shard_videoids
+from optical_flow_tpu_torch.parallel.corpus import (maybe_init_distributed,
+                                                    shard_videoids)
 from optical_flow_tpu_torch.pipeline.extractor import run_corpus
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
 
@@ -102,8 +104,14 @@ def main(argv=None) -> None:
         resume=args.resume,
     )
     videoids = args.videoids
-    if args.num_workers > 1:
-        videoids = shard_videoids(videoids, args.worker_index, args.num_workers)
+    # multi-host: each process takes the shard of its OFT_PROCESS_ID
+    # unless the worker grid was given on the command line
+    pid, nproc = maybe_init_distributed()
+    worker_index, num_workers = args.worker_index, args.num_workers
+    if nproc > 1 and num_workers == 1:
+        worker_index, num_workers = pid, nproc
+    if num_workers > 1:
+        videoids = shard_videoids(videoids, worker_index, num_workers)
     run_corpus(args.features_root, videoids, config, progress=_progress_bar(),
                robust=args.robust, video_workers=args.video_workers,
                device=args.device)

@@ -5,35 +5,51 @@
 // (fused_update_blur_store, driven by pallas/fused_iterate.py
 // update_flow_fused).  For each pixel:
 //   1. M = (G11, G12, G22, h1, h2) from the displaced fetch of R1
-//      (update_matrices.cuh, shared with K5a);
+//      (update_matrices.cuh, shared with K5a and K7);
 //   2. sum M over the winsize x winsize window with replicate borders:
 //      the box (plain adds, then a 1 / winsize^2 scale) or the Gaussian
 //      window (taps t: a = t[0] * M[x - m] + t[1] * M[x - m + 1] + ...,
 //      horizontally, then vertically, scale 1), in K5b's order, so that
-//      K1 equals K5a -> K5b to the bit with either window;
-//   3. solve the 2x2 system, det regularised by +1e-3, for the new flow.
+//      K1 equals K5a -> K5b (and K7 equals K2 -> K1) to the bit;
+//   3. solve the 2x2 system, det regularised by +1e-3 (window_solve.cuh).
 //
 // What bounds it: per output pixel it reads 7 f32 (R0 and the flow) plus a
-// 5-f32 gather of R1, and writes 2 f32, 56 B/px in all, if M stayed on
-// chip; the unfused version (K5a -> K5b) adds 2 x 20 B/px of M round trips
-// per step.  So M for a 32x32 output tile plus its (winsize - 1) halo is
-// built in shared memory (5 x 46 x 46 f32 at winsize 15), then summed
-// horizontally, then vertically, the five channels of a pixel advancing
-// together (one tap, five independent add chains), and solved.  The halo
-// costs (46/32)^2 =
-// 2.1 M evaluations per output pixel; the card's hardware gather makes the
-// displaced fetch a plain clamped load, exact by construction.  The tile
-// must fit in shared memory, which bounds winsize (<= 61); larger windows
-// go to K5a -> K5b.  The grid covers any width (8K frames included, the
-// TPU's column-chunked K8); plane offsets are int64.
+// 5-f32 gather of R1, and writes 2 f32, 56 B/px in all, if M stays on
+// chip.  The design keeps M on chip and builds it about once per pixel:
+//   - A block owns a strip of SW = 32 output columns and walks down
+//     rows_per_block output rows (32 to 256, chosen by the wrapper so that
+//     the grid fills the card).  It builds M on G = 32 new rows at a time,
+//     over the strip plus the m-column halo on each side, into shared
+//     memory (a warp per row); the rows above and below the strip's
+//     output rows are built once per block, so the halo costs
+//     (SW + 2m) / SW x (rows + 2m) / rows evaluations per output pixel,
+//     1.5 at winsize 15 with 256-row blocks (the former 32 x 32 tile:
+//     2.07).  Each thread keeps the loads of U = 3 pixels in flight (the
+//     flow, then R0 and the gathered R1): building M is the larger part
+//     of the kernel's time.
+//   - The horizontal sums of each new row go to a ring of the last 2m + G
+//     rows; each output row's vertical sum is taken from the ring once its
+//     m rows below are in.
+//   - Both window sums are register-blocked: a thread keeps a sliding run
+//     of the values it reads and produces K = 4 adjacent sums (along the
+//     row horizontally, down the column vertically), so each value is read
+//     from shared memory (2m + K) / K times instead of 2m + 1 times.  Each
+//     sum still adds its taps left to right, in K5b's order; a running box
+//     sum would round differently.  Lanes take rows in the horizontal pass
+//     (the M rows' stride is odd) and columns in the vertical pass (the
+//     ring's row stride is SW + 1), so neither pass has bank conflicts.
+// The shared memory, 4 x (5 G (SW + 2m + 1) + 5 (2m + G)(SW + 1) + 2m + 1)
+// bytes (60.5 KB at winsize 15, three blocks of 256 threads an SM), bounds
+// winsize; the route keeps K1 to winsize <= 61 (k1_fits in
+// kernels/update_gather.py).  The displaced fetch is the card's clamped
+// gather, exact by construction.  The grid covers any width (8K frames
+// included, the TPU's column-chunked K8); plane offsets are int64.
 //
-// Border: halo entries outside the image hold M *at the clamped pixel*,
-// that pixel's border weight included (replicate border of the box sum).
-// The input and output flow must be distinct buffers: a step reads its
-// neighbours' flow.  M's arithmetic is update_matrices.cuh's and the
-// window sum and solve window_solve.cuh's, both shared with K7
-// (update_blur_poly.cu); they follow the plain version op for op
-// (--fmad=false).
+// Border: rows and columns of M outside the image hold M *at the clamped
+// pixel*, that pixel's border weight included (replicate border of the
+// window sum).  The input and output flow must be distinct buffers: a step
+// reads its neighbours' flow.  The arithmetic follows the plain version op
+// for op (--fmad=false).
 
 #include <cuda_runtime.h>
 
@@ -42,65 +58,240 @@
 
 namespace {
 
-constexpr int TX = 32;  // output columns per block (one per thread)
-constexpr int TY = 32;  // output rows per block
-constexpr int BY = 8;   // thread rows per block
+constexpr int SW = 32;        // output columns per block: one per lane
+constexpr int G = 32;         // M rows built per pass: one per lane
+constexpr int K = 4;          // adjacent sums per thread
+constexpr int kWarps = 8;     // SW / K column groups, G / K row groups
+constexpr int kThreads = 32 * kWarps;
+constexpr int HS = SW + 1;    // ring row stride (floats)
+constexpr int U = 3;          // M evaluations a thread keeps in flight
+
+static_assert(SW == K * kWarps && G == K * kWarps, "one sum group per warp");
+
+__host__ __device__ constexpr int m_row_stride(int m) { return SW + 2 * m + 1; }
+
+__host__ __device__ constexpr int ring_rows(int m) { return 2 * m + G; }
+
+__host__ __device__ constexpr size_t smem_floats(int m) {
+  return 5 * G * m_row_stride(m) + 5 * ring_rows(m) * HS + 2 * m + 1;
+}
+
+// K adjacent window sums of 2m + 1 taps, a[k][j] = sum_i t[i] v[j + i][k]
+// (the box: t = 1), each added in tap order.  load(q, v) gives the five
+// channels of the q-th value, q = 0 .. 2m + K - 1, called once each in
+// that order.  Sum j starts at q = j and ends at q = j + 2m: the first K
+// and the last K - 1 values are peeled (unrolled), so that the loop
+// between them adds to all K sums with no test.
+template <bool GAUSS, typename Load>
+__device__ __forceinline__ void window_sums(Load load, const float* t, int m,
+                                            float (&a)[5][K]) {
+  const int n = 2 * m + 1;
+  float v[5];
+  float tw[K];   // tw[j] = t[q - j], the tap of value q in sum j
+  if (n < K) {   // windows shorter than K: every step tests its sums
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      tw[j] = 1.0f;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) a[k][j] = 0.0f;
+    }
+    for (int q = 0; q < n + K - 1; ++q) {
+      load(q, v);
+      if (GAUSS) {
+#pragma unroll
+        for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+        tw[0] = q < n ? t[q] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int i = q - j;
+        if (i >= 0 && i < n) {
+#pragma unroll
+          for (int k = 0; k < 5; ++k) {
+            const float tv = oft::term<GAUSS>(tw[j], v[k]);
+            a[k][j] = i == 0 ? tv : a[k][j] + tv;
+          }
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) tw[j] = 1.0f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {          // sum q starts; sums j < q go on
+    load(q, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+      tw[0] = t[q];
+    }
+#pragma unroll
+    for (int j = 0; j <= q; ++j)
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        const float tv = oft::term<GAUSS>(tw[j], v[k]);
+        a[k][j] = j == q ? tv : a[k][j] + tv;
+      }
+  }
+  for (int q = K; q < n; ++q) {          // all K sums go on
+    load(q, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+      tw[0] = t[q];
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int k = 0; k < 5; ++k) a[k][j] = a[k][j] + oft::term<GAUSS>(tw[j], v[k]);
+  }
+#pragma unroll
+  for (int e = 1; e < K; ++e) {          // sums j < e have ended
+    load(n - 1 + e, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+    }
+#pragma unroll
+    for (int j = e; j < K; ++j)
+#pragma unroll
+      for (int k = 0; k < 5; ++k) a[k][j] = a[k][j] + oft::term<GAUSS>(tw[j], v[k]);
+  }
+}
 
 // GAUSS: weighted sums with the window taps; else plain adds (the box).
 template <bool GAUSS>
-__global__ void update_blur_kernel(const float* __restrict__ R0,
-                                   const float* __restrict__ R1,
-                                   const float* __restrict__ flow_in,
-                                   float* __restrict__ flow_out, int H, int W,
-                                   int m, const float* __restrict__ taps_g,
-                                   float scale) {
+__global__ void __launch_bounds__(kThreads, 3)
+update_blur_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
+                   const float* __restrict__ flow_in,
+                   float* __restrict__ flow_out, int H, int W, int m,
+                   const float* __restrict__ taps_g, float scale,
+                   int rows_per_block) {
   extern __shared__ float smem[];
-  const int MW = TX + 2 * m;
-  const int MH = TY + 2 * m;
-  float* Ms = smem;                 // [5][MH][MW]  M on the tile + halo
-  float* Hs = smem + 5 * MH * MW;   // [5][MH][TX]  horizontal window sums
-  float* t = Hs + 5 * MH * TX;      // [2m + 1]     window taps (GAUSS)
-  const int x0 = blockIdx.x * TX;
-  const int y0 = blockIdx.y * TY;
+  const int MWp = m_row_stride(m);
+  const int R = ring_rows(m);
+  float* Mb = smem;                  // [5][G][MWp]  M on new rows + halo
+  float* Hr = Mb + 5 * G * MWp;      // [5][R][HS]   ring of horizontal sums
+  float* t = Hr + 5 * R * HS;        // [2m + 1]     window taps (GAUSS)
+  const int x0 = blockIdx.x * SW;
+  const int y0 = blockIdx.y * rows_per_block;
+  const int y_end = min(y0 + rows_per_block, H);   // output rows [y0, y_end)
   const long long plane = static_cast<long long>(H) * W;
   const float* r0 = R0 + blockIdx.z * 5 * plane;
   const float* r1 = R1 + blockIdx.z * 5 * plane;
   const float* fl = flow_in + blockIdx.z * 2 * plane;
-  const int tid = threadIdx.y * TX + threadIdx.x;
+  float* out = flow_out + blockIdx.z * 2 * plane;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
   if (GAUSS)
-    for (int i = tid; i <= 2 * m; i += TX * BY) t[i] = taps_g[i];
+    for (int i = tid; i <= 2 * m; i += kThreads) t[i] = taps_g[i];
 
-  for (int e = tid; e < MH * MW; e += TX * BY) {
-    const int ly = e / MW;
-    const int lx = e - ly * MW;
-    const int y = oft::clampi(y0 - m + ly, 0, H - 1);
-    const int x = oft::clampi(x0 - m + lx, 0, W - 1);
-    float mv[5];
-    oft::matrices_at(r0, r1, fl, y, x, H, W, plane, mv);
-    for (int k = 0; k < 5; ++k) Ms[(k * MH + ly) * MW + lx] = mv[k];
+  // M on image rows [ya, ya + n), n <= G, then their horizontal sums into
+  // the ring (row y at slot (y - y0 + m) mod R).  Rows go in increasing
+  // order, so the ring holds the last R rows built.
+  auto build_rows = [&](int ya, int n) {
+    const int mw = SW + 2 * m;
+    const int total = n * mw;
+    // U pixels a thread at a time, their loads issued together (the flow,
+    // then R0 and the gathered R1), so that their latencies overlap; past
+    // the end a thread repeats the last pixel, storing the same values
+    for (int e0 = tid; e0 < total; e0 += U * kThreads) {
+      int at[U], y[U], x[U];
+      long long p[U];
+      float dx[U], dy[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = min(e0 + u * kThreads, total - 1);
+        const int r = e / mw;
+        const int c = e - r * mw;
+        at[u] = r * MWp + c;
+        y[u] = oft::clampi(ya + r, 0, H - 1);
+        x[u] = oft::clampi(x0 - m + c, 0, W - 1);
+        p[u] = static_cast<long long>(y[u]) * W + x[u];
+        dx[u] = fl[p[u]];
+        dy[u] = fl[plane + p[u]];
+      }
+      float a[U][5], d[U][5];
+      bool inside[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        int yi, xi;
+        inside[u] = oft::fetch_target(y[u], x[u], dx[u], dy[u], H, W, yi, xi);
+        const long long q = static_cast<long long>(yi) * W + xi;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          a[u][k] = r0[k * plane + p[u]];
+          d[u][k] = r1[k * plane + q];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float mv[5];
+        oft::assemble(a[u], d[u], dx[u], dy[u], inside[u], y[u], x[u], H, W, mv);
+#pragma unroll
+        for (int k = 0; k < 5; ++k) Mb[k * G * MWp + at[u]] = mv[k];
+      }
+    }
+    __syncthreads();
+    if (lane < n) {   // lane: the row; warp: K adjacent output columns
+      const float* p = Mb + lane * MWp + K * warp;
+      float a[5][K];
+      window_sums<GAUSS>(
+          [&](int q, float* v) {
+#pragma unroll
+            for (int k = 0; k < 5; ++k) v[k] = p[k * G * MWp + q];
+          },
+          t, m, a);
+      const int slot = (ya + lane - y0 + m) % R;
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+#pragma unroll
+        for (int j = 0; j < K; ++j) Hr[(k * R + slot) * HS + K * warp + j] = a[k][j];
+    }
+    __syncthreads();
+  };
+
+  for (int ya = y0 - m; ya < y0 + m; ya += G) build_rows(ya, min(G, y0 + m - ya));
+  for (int yg = y0; yg < y_end; yg += G) {
+    build_rows(yg + m, min(G, y_end - yg));
+    // lane: the column; warp: K adjacent output rows from ybase
+    const int x = x0 + lane;
+    const int ybase = yg + K * warp;
+    if (x >= W || ybase >= y_end) continue;
+    int slot = (ybase - y0) % R;     // ring slot of row ybase - m
+    float s[5][K];
+    window_sums<GAUSS>(
+        [&](int, float* v) {
+#pragma unroll
+          for (int k = 0; k < 5; ++k) v[k] = Hr[(k * R + slot) * HS + lane];
+          slot = slot + 1 == R ? 0 : slot + 1;
+        },
+        t, m, s);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int y = ybase + j;
+      if (y >= y_end) break;
+      const float sj[5] = {s[0][j], s[1][j], s[2][j], s[3][j], s[4][j]};
+      oft::solve_store(sj, scale, out, static_cast<long long>(y) * W + x, plane);
+    }
   }
-  __syncthreads();
-
-  oft::window_sum_solve<GAUSS, TX, TY, BY>(Ms, Hs, t, m, scale, x0, y0, H, W,
-                                           plane, flow_out + blockIdx.z * 2 * plane);
 }
 
 template <bool GAUSS>
 int launch(const float* R0, const float* R1, const float* flow_in,
            float* flow_out, int B, int H, int W, int m, const float* taps,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-                      (5 * ((TY + 2 * m) * (TX + 2 * m) + (TY + 2 * m) * TX) +
-                       (GAUSS ? 2 * m + 1 : 0));
+           float scale, int rows_per_block, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(m);
   cudaError_t err = cudaFuncSetAttribute(
       update_blur_kernel<GAUSS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(TX, BY);
-  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  update_blur_kernel<GAUSS><<<grid, block, smem, stream>>>(
-      R0, R1, flow_in, flow_out, H, W, m, taps, scale);
+  const dim3 grid((W + SW - 1) / SW, (H + rows_per_block - 1) / rows_per_block, B);
+  update_blur_kernel<GAUSS><<<grid, kThreads, smem, stream>>>(
+      R0, R1, flow_in, flow_out, H, W, m, taps, scale, rows_per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -108,17 +299,38 @@ int launch(const float* R0, const float* R1, const float* flow_in,
 
 // R0, R1: (B, 5, H, W) f32; flow_in, flow_out: distinct (B, 2, H, W) f32.
 // m = winsize / 2.  taps: the 2m + 1 Gaussian window taps on the device
-// (scale 1), or null for the box window (scale 1 / winsize^2).  Returns a
-// cudaError_t.
+// (scale 1), or null for the box window (scale 1 / winsize^2).
+// rows_per_block: output rows each block walks, a positive multiple of
+// 32.  Returns a cudaError_t.
 extern "C" int oft_update_blur(const float* R0, const float* R1,
                                const float* flow_in, float* flow_out, int B,
                                int H, int W, int m, const float* taps,
-                               float scale, int device, void* stream) {
-  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+                               float scale, int rows_per_block, int device,
+                               void* stream) {
+  if (m < 0 || rows_per_block < G || rows_per_block % G != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (taps != nullptr)
-    return launch<true>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale, s);
-  return launch<false>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale, s);
+    return launch<true>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale,
+                        rows_per_block, s);
+  return launch<false>(R0, R1, flow_in, flow_out, B, H, W, m, taps, scale,
+                       rows_per_block, s);
+}
+
+// Blocks of the kernel resident on one SM at window half-width m, into
+// *blocks, and its dynamic shared memory per block, into *smem.  Returns a
+// cudaError_t.
+extern "C" int oft_update_blur_occupancy(int m, int gauss, int device,
+                                         int* blocks, int* smem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *smem = static_cast<int>(sizeof(float) * smem_floats(m));
+  auto kernel = gauss ? update_blur_kernel<true> : update_blur_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, *smem));
 }

@@ -1,6 +1,8 @@
-// The window sum and solve of an iterate step, shared by K1
-// (update_blur.cu) and K7 (update_blur_poly.cu): from M on a block's
-// output tile plus its m-pixel halo in shared memory to the new flow, with
+// The window sum and solve of an iterate step.  `term` and `solve_store`
+// are shared by K1 (update_blur.cu) and K7 (update_blur_poly.cu), so that
+// both sum and solve by the same instructions; `window_sum_solve` is K7's:
+// from M on a block's output tile plus its m-pixel halo in shared memory
+// to the new flow, with
 // the box window (plain adds, then a 1 / winsize^2 scale) or the Gaussian
 // one (taps t: a = t[0] * M[x - m] + t[1] * M[x - m + 1] + ...,
 // horizontally, then vertically, scale 1), in K5b's order; then the 2x2
@@ -18,6 +20,21 @@ namespace oft {
 template <bool GAUSS>
 __device__ __forceinline__ float term(float t, float v) {
   return GAUSS ? t * v : v;
+}
+
+// The 2x2 solve of one pixel from its five window sums s (G11, G12, G22,
+// h1, h2), scaled; the new flow to out[p] (dx) and out[plane + p] (dy).
+__device__ __forceinline__ void solve_store(const float* s, float scale,
+                                            float* __restrict__ out,
+                                            long long p, long long plane) {
+  const float g11 = s[0] * scale;
+  const float g12 = s[1] * scale;
+  const float g22 = s[2] * scale;
+  const float h1 = s[3] * scale;
+  const float h2 = s[4] * scale;
+  const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
+  out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
+  out[plane + p] = (g22 * h1 - g12 * h2) * idet;  // dy
 }
 
 // Ms: [5][MH][MW] M on the TX x TY tile at (x0, y0) plus its halo (MH =
@@ -72,15 +89,7 @@ __device__ __forceinline__ void window_sum_solve(const float* Ms, float* Hs,
 #pragma unroll
       for (int k = 0; k < 5; ++k) s[k] = s[k] + term<GAUSS>(ti, h[k * MH * TX + i * TX]);
     }
-    const float g11 = s[0] * scale;
-    const float g12 = s[1] * scale;
-    const float g22 = s[2] * scale;
-    const float h1 = s[3] * scale;
-    const float h2 = s[4] * scale;
-    const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
-    const long long p = static_cast<long long>(y) * W + x;
-    out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
-    out[plane + p] = (g22 * h1 - g12 * h2) * idet;  // dy
+    solve_store(s, scale, out, static_cast<long long>(y) * W + x, plane);
   }
 }
 

@@ -16,11 +16,17 @@ none of that is ported, and neither is the column chunking.
 
 Its floor on the card is device-memory traffic, 56 B/px per step (R0 and
 the flow read, the R1 gather, the new flow written), because M never
-leaves shared memory: a block builds M for its 32x32 output tile plus the
-(winsize - 1) halo, sums it and solves.  That costs 2.1 M evaluations per
-output pixel at winsize 15, arithmetic and shared-memory traffic that
-keep this first version above the traffic floor (PERF.md).  The tile
-bounds the window: `k1_fits`.
+leaves shared memory.  A block owns a 32-column strip and walks down
+32 to 256 output rows (`_rows_per_block`: enough blocks to fill the
+card), building M once per row over the strip plus its window halo,
+summing each row horizontally into a ring of the last winsize + 31 rows
+and each output row vertically from the ring; both sums are
+register-blocked four outputs a thread, each still in tap order.  That
+is 1.5 M evaluations per output pixel at winsize 15 with 256-row blocks
+(the former 32x32 tile: 2.1), and a third of the former shared-memory
+reads.  What is left above the traffic floor is building M: its loads,
+three pixels a thread in flight, at three blocks an SM (PERF.md).  The shared memory bounds the window; the
+route keeps K1 to winsize <= 61: `k1_fits`.
 
 K5a replaces `update_matrices_pallas_batched_stats` (`:1851`, with its
 column-chunked build `:1714` for wide frames and the store-layout entry
@@ -50,14 +56,41 @@ from optical_flow_tpu_torch.kernels.blur_solve import window_taps
 from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
 from optical_flow_tpu_torch.models.farneback import core
 
-_TILE = 32  # output tile side, as TX and TY in update_blur.cu
+_TILE = 32          # K7's output tile side, as TX and TY in update_blur_poly.cu
+_STRIP = 32         # K1's strip width and rows built per pass (SW, G)
+_K1_MAX_WINSIZE = 61
+
+
+def k1_smem(winsize: int) -> int:
+    """K1's shared memory per block, as `smem_floats` in update_blur.cu:
+    M on 32 rows of the strip plus its halo, the ring of horizontal sums,
+    the window taps."""
+    m = winsize // 2
+    return 4 * (5 * _STRIP * (_STRIP + 2 * m + 1) + 5 * (2 * m + _STRIP) * (_STRIP + 1)
+                + 2 * m + 1)
 
 
 def k1_fits(winsize: int) -> bool:
-    """Whether K1's shared memory (M on the tile plus its halo, the row
-    sums and the window taps) fits one block: winsize <= 61."""
-    m = winsize // 2
-    return 4 * (5 * (_TILE + 2 * m) * (2 * _TILE + 2 * m) + 2 * m + 1) <= MAX_SMEM
+    """Whether K1 takes the window: winsize <= 61.  Its shared memory
+    would take windows up to 145; the route keeps the larger ones on
+    K5a -> K5b, as before."""
+    return winsize <= _K1_MAX_WINSIZE and k1_smem(winsize) <= MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rows_per_block(B: int, h: int, w: int, device: torch.device) -> int:
+    """Output rows each K1 block walks: the most of 256, 128, 64 and 32
+    that still gives six blocks per SM (two waves at three resident
+    blocks), so small levels trade some vertical halo for a full card."""
+    strips = -(-w // _STRIP)
+    for rows in (256, 128, 64):
+        if B * strips * -(-h // rows) >= 6 * _sm_count(device):
+            return rows
+    return _STRIP
 
 
 def k7_fits(winsize: int, poly_n: int) -> bool:
@@ -75,7 +108,7 @@ def k7_fits(winsize: int, poly_n: int) -> bool:
 def _k1():
     f = _build.library("update_blur").oft_update_blur
     p, i = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [p, p, p, p, i, i, i, i, p, ctypes.c_float, i, p]
+    f.argtypes = [p, p, p, p, i, i, i, i, p, ctypes.c_float, i, i, p]
     f.restype = i
     return f
 
@@ -135,7 +168,8 @@ def update_blur(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
         return out
     rc = _k1()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
                B, h, w, winsize // 2, None if taps is None else taps.data_ptr(),
-               scale, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+               scale, _rows_per_block(B, h, w, dev), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "update_blur")
     LAUNCHES["K1"] += 1
     return out

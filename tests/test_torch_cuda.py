@@ -7,9 +7,11 @@ visualizer's chained pyramid and K4 colorization, the unfused iterate
 window, the box window beyond K1's tile, the seeded entry, K6 (the
 full-resolution Gaussian) at any tap count, the configs whose levels
 K3 does not take (levels 4 and 5, pyr_scale 0.25) or whose expansion is
-wider than cv2's (poly_n 11), and K7 (the step with the expansion derived
+wider than cv2's (poly_n 11), K7 (the step with the expansion derived
 in-kernel) against K2 -> K1 to the bit, alone, per level and on the
-whole path with FUSE_POLYEXP on.
+whole path with FUSE_POLYEXP on, and the strip-walking K1 and the
+band-staging K3 at shapes that straddle their strip, ring and tile
+edges.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -622,3 +624,83 @@ def test_extract_frames_on_the_card(dev):
         for i, (s, e, v) in got.items():
             assert (s, e) == ref[i][:2]
             assert abs(v - ref[i][2]) <= 1e-4 * abs(ref[i][2])
+
+
+STRIP_SHAPES = [(1, 1), (2, 2), (31, 33), (33, 31), (65, 65), (1, 65), (65, 2)]
+STRIP_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
+                 (31, False), (31, True), (61, False), (61, True)]
+
+
+def _wide_operands(dev, B, h, w, amplitude, seed=5):
+    """Random R0, R1 (B, 5, h, w) and a flow of up to `amplitude` px."""
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((2 * B, 5, h, w)).astype(np.float32)
+    flow = ((rng.random((B, 2, h, w)) - 0.5) * 2 * amplitude).astype(np.float32)
+    return (torch.as_tensor(R[:B]).to(dev), torch.as_tensor(R[B:]).to(dev),
+            torch.as_tensor(flow).to(dev))
+
+
+@pytest.mark.parametrize("winsize,gaussian", STRIP_WINDOWS)
+@pytest.mark.parametrize("h,w", STRIP_SHAPES)
+def test_update_blur_strip_edges(dev, h, w, winsize, gaussian):
+    """K1 at H and W of 1, 2, the strip width (32) +- 1 and twice it + 1,
+    B = 3, a +-40 px flow: equal to K5a -> K5b to the bit and to its
+    plain version within the step tolerance."""
+    R0, R1, flow = _wide_operands(dev, 3, h, w, 40.0)
+    got = update_blur(R0, R1, flow, winsize, gaussian)
+    unfused = blur_solve(update_matrices(R0, R1, flow), winsize, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfused), float((got - unfused).abs().max())
+    _close(got, core.update_step(R0, R1, flow, winsize, gaussian), STEP_TOL)
+    assert kernels.LAUNCHES["K1"] == 1
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("h,w,B", [(300, 7680, 3), (97, 7680, 1)])
+def test_update_blur_width_7680(dev, h, w, B, gaussian):
+    """K1 at width 7680 (the 8K row's), 256-row blocks at B = 3 (the
+    grid fills the card; the second block of a strip walks 44 rows) and
+    32-row blocks at B = 1, equal to K5a -> K5b to the bit."""
+    from optical_flow_tpu_torch.kernels import update_gather
+    R0, R1, flow = _wide_operands(dev, B, h, w, 40.0)
+    rows = update_gather._rows_per_block(B, h, w, dev)
+    assert rows == (256 if B == 3 else 32)
+    got = update_blur(R0, R1, flow, 15, gaussian)
+    unfused = blur_solve(update_matrices(R0, R1, flow), 15, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfused)
+    _close(got, core.update_step(R0, R1, flow, 15, gaussian), STEP_TOL)
+
+
+def _level_cases():
+    """(h, w, ntaps, out_h, out_w) at the small shapes with every tap
+    count, then each K3 level of the 1080p and the 8K pyramid."""
+    cases = [(h, w, ntaps, max(h // 2, 1), max(w // 2, 1))
+             for h, w in ((37, 53), (72, 129), (33, 257)) for ntaps in (3, 9, 19, 31)]
+    for h, w in ((1080, 1920), (4320, 7680)):
+        for lv in build_plan(h, w, FarnebackConfig()).levels:
+            if lv.k > 0:
+                cases.append((h, w, lv.smooth_ksize, lv.height, lv.width))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("h,w,ntaps,oh,ow", _level_cases())
+def test_gauss_resize_kernel_bit_equal(dev, h, w, ntaps, oh, ow, dtype):
+    """K3 against its plain version, to the bit, uint8 and f32 frames."""
+    n = 2 if h * w > 10 ** 6 else 3
+    img = _frames(n, h, w, seed=ntaps)
+    if dtype == "f32":
+        img = img.astype(np.float32) / 7.0 - 3.0
+    img = torch.as_tensor(img).to(dev)
+    taps = gaussian_kernel(ntaps, 0.3 * ((ntaps - 1) * 0.5 - 1) + 0.8)
+    got = gauss_resize(img, taps, ow, oh)
+    ref = core.gaussian_blur_resize(img, taps, ow, oh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    # an unaligned start: the scalar staging path at the same shapes
+    if h * w < 10 ** 6:
+        odd = torch.empty(img.numel() + 1, dtype=img.dtype, device=dev)[1:].view(img.shape)
+        odd.copy_(img)
+        assert torch.equal(gauss_resize(odd, taps, ow, oh), ref)
+    assert kernels.LAUNCHES["K3"] >= 1

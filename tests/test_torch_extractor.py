@@ -192,6 +192,51 @@ def test_cli_parser_matches_jax():
     assert_parser_matches_jax(tcli.build_parser(), jcli.build_parser(), argv)
 
 
+IDS = [f"v{i}" for i in range(8)]
+
+
+def _cli_shard(monkeypatch, env, argv):
+    """The videoids the port's CLI hands run_corpus under `env`."""
+    for key in ("OFT_COORDINATOR_ADDRESS", "OFT_NUM_PROCESSES", "OFT_PROCESS_ID"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    seen = []
+    monkeypatch.setattr(tcli, "run_corpus",
+                        lambda root, ids, *a, **k: seen.append(list(ids)))
+    tcli.main(["/nonexistent", *IDS, "--device", "cpu", *argv])
+    return seen[0]
+
+
+MULTI_HOST = {"OFT_COORDINATOR_ADDRESS": "localhost:9801", "OFT_NUM_PROCESSES": "3",
+              "OFT_PROCESS_ID": "1"}
+
+
+def test_maybe_init_distributed_reads_the_jax_environment(monkeypatch):
+    for key in MULTI_HOST:
+        monkeypatch.delenv(key, raising=False)
+    assert corpus.maybe_init_distributed() == (0, 1)
+    for key, value in MULTI_HOST.items():
+        monkeypatch.setenv(key, value)
+    assert corpus.maybe_init_distributed() == (1, 3)
+
+
+@pytest.mark.parametrize("env,argv,expected", [
+    ({}, [], IDS),
+    (MULTI_HOST, [], IDS[1::3]),                                   # JAX's shard
+    (MULTI_HOST, ["--num_workers", "2", "--worker_index", "0"], IDS[0::2]),
+    ({"OFT_NUM_PROCESSES": "3", "OFT_PROCESS_ID": "1"}, [], IDS),  # no address
+])
+def test_cli_shards_by_process_as_jax(monkeypatch, env, argv, expected):
+    """With the multi-host variables set, each process takes the shard
+    JAX's CLI gives it (`shard_videoids(ids, pid, nproc)`); an explicit
+    --num_workers wins."""
+    got = _cli_shard(monkeypatch, env, argv)
+    assert got == expected
+    if env == MULTI_HOST and not argv:
+        assert got == jcorpus.shard_videoids(IDS, 1, 3)
+
+
 def test_cli_matches_jax_run_corpus(jax_corpus, port_corpus):
     """`.done` bytes identical; the CSV's timestamps identical and its
     magnitudes within 0.01."""

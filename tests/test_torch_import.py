@@ -110,6 +110,40 @@ def test_port_imports_no_jax_and_no_cuda():
                              "K6": 0, "K7": 0}
 
 
+_SUBPACKAGE = textwrap.dedent("""
+    import importlib, json, sys
+    import torch
+    mod = importlib.import_module(sys.argv[1])
+    names = {n: type(getattr(mod, n)).__name__ for n in getattr(mod, "__all__", [])}
+    print(json.dumps({
+        "names": names,
+        "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+        "jax_package": sorted(m for m in sys.modules
+                              if m.split(".")[0] == "optical_flow_tpu"),
+        "cuda_initialized": torch.cuda.is_initialized(),
+    }))
+""")
+
+
+@pytest.mark.parametrize("sub", ["", ".models", ".models.farneback", ".ops", ".pipeline",
+                                 ".parallel", ".utils", ".oracle", ".io", ".cli",
+                                 ".kernels"])
+def test_subpackage_import_alone_is_clean(sub):
+    """Each subpackage, imported first in a fresh interpreter and its
+    exported names resolved, loads neither JAX nor the JAX package and
+    starts no CUDA context."""
+    import json
+    out = subprocess.run([sys.executable, "-c", _SUBPACKAGE, "optical_flow_tpu_torch" + sub],
+                         cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env=_env(PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["jax"] == [] and r["jax_package"] == []
+    assert r["cuda_initialized"] is False
+    if sub not in (".cli", ".kernels"):
+        assert r["names"], "the subpackage exports nothing"
+
+
 def test_no_jax_import_in_port_sources():
     for path in list((REPO / "optical_flow_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
