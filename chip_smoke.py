@@ -11,8 +11,10 @@ PyTorch version at the shapes of the 1080p B=16 paths (the K1 and K3
 lines also carry ptxas's registers, spills and shared memory per kernel
 and the blocks resident per SM; K5a, K5b and K1,
 box and Gaussian, also at one 4320x7680 level; K6 at the two levels of a
-five-level 1080p pyramid that K3 does not take; K2 also at poly_n 11; K7,
-box and Gaussian, at every level, and equal to K2 -> K1 to the bit),
+five-level 1080p pyramid that K3 does not take; K2 also at poly_n 7 and 11; K5b,
+box and Gaussian, at winsize 15 and at winsize 63, where its path runs
+it; K7, box and Gaussian, at every level, and equal to K2 -> K1 to the
+bit; K2 and K5b with ptxas's report too),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
@@ -33,10 +35,10 @@ L4 and L5) at 1080x1920, and bench.py's 8K row (4320x7680, B=1).  Each
 path is checked against the plain path on the card, the true shift and,
 where the file has it, the JAX package's golden numbers
 (`tests/data/torch_port_golden.json`), and both paths are timed.
---profile adds `profile_1080p`, `profile_deep_1080p` and `profile_8k`:
-the device time per kernel and the busy share of the 1080p flow call
-under flags 0, 256 and 4 and with levels=5, and of the 8K pair
-(torch.profiler).
+--profile adds `profile_1080p`, `profile_deep_1080p`,
+`profile_winsize63_1080p` and `profile_8k`: the device time per kernel
+and the busy share of the 1080p flow call under flags 0, 256 and 4, with
+levels=5 and with winsize 63, and of the 8K pair (torch.profiler).
 One JSON line per phase; then the card's nvidia-smi line, the kernels
 summary (each kernel's launches on the paths, its error against its
 plain version, its time, its plain version's, the bound of its bytes or
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +72,7 @@ KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3),
               "K7": (1e-3, 1e-3)}
 EPE_GATE = 0.5            # BASELINE.md's interior EPE gate, px
 WIDE = (4320, 7680)       # wider than the TPU kernels' 4096-column window
+WIDE_WINDOW = 63          # a box beyond K1's tile: the window K5b runs
 SHIFT_8K = (3, 5)         # bench.py's 8K row: true flow (-5, -3)
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # f32 operations/s outside the tensor cores, for each kernel's bound.
@@ -292,6 +296,36 @@ def library_level(taps, oh: int, ow: int, dev):
                                      align_corners=False)[:, 0]
 
 
+def library_polyexp(poly_n: int, poly_sigma: float, pre_taps, dev):
+    """K2's yardstick, the same function in PyTorch calls (TF32 off):
+    reflect pad + a 3x3 conv2d for the pre-smooth, replicate pad + one
+    conv2d for the three vertical correlations, replicate pad + one
+    grouped conv2d for the six horizontal ones (three a group, one of the
+    nine unused), and the combine."""
+    import torch
+    import torch.nn.functional as F
+    from optical_flow_tpu_torch.models.farneback.params import poly_exp_weights
+    g, xg, xxg, ig11, ig03, ig33, ig55 = poly_exp_weights(poly_n, poly_sigma)
+    n = poly_n
+    vert = torch.as_tensor(np.stack([g, xg, xxg]), device=dev).view(3, 1, 2 * n + 1, 1)
+    horiz = torch.as_tensor(np.stack([g, xg, xxg] * 3), device=dev).view(9, 1, 1, 2 * n + 1)
+    pre = None if pre_taps is None else torch.as_tensor(
+        np.outer(pre_taps, pre_taps).astype(np.float32), device=dev).view(1, 1, 3, 3)
+    ig11, ig03, ig33, ig55 = (float(np.float32(v)) for v in (ig11, ig03, ig33, ig55))
+
+    def expand(img):
+        x = img.float()[:, None]
+        if pre is not None:
+            x = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), pre)
+        x = F.conv2d(F.pad(x, (0, 0, n, n), mode="replicate"), vert)
+        x = F.conv2d(F.pad(x, (n, n, 0, 0), mode="replicate"), horiz, groups=3)
+        # row0 x (g, xg, xxg) = b1, b2, b4; row1 x (g, xg) = b3, b6; row2 x g = b5
+        b1, b2, b4, b3, b6, b5 = x[:, 0], x[:, 1], x[:, 2], x[:, 3], x[:, 4], x[:, 6]
+        return torch.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
+                            b1 * ig03 + b4 * ig33, b6 * ig55], dim=1)
+    return expand
+
+
 def library_box_solve(winsize: int):
     """K5b's box yardstick: replicate pad + avg_pool2d, then the solve."""
     import torch.nn.functional as F
@@ -354,7 +388,11 @@ def ptxas_report(name: str) -> list:
     rows, entry = [], None
     for line in (log.stdout + log.stderr).splitlines():
         if "Compiling entry function" in line:
-            entry = {"kernel": line.split("'")[1][:60]}
+            name = line.split("'")[1]
+            # the kernel's own name and template arguments, after the
+            # anonymous namespace's mangled prefix
+            cut = re.search(r"_cu_[0-9a-f]{8}\d+", name)
+            entry = {"kernel": (name[cut.end():] if cut else name)[:60]}
             rows.append(entry)
         elif entry is not None and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
@@ -434,22 +472,34 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
 
     Rs = {}
     k2 = []
+    lib_err = {}
     for lv in plan.levels:
         if lv.k == 0:
             src, pre = both, gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
         else:
             src, pre = imgs[lv.k], None
         Rs[lv.k] = poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
+        lib = library_polyexp(cfg.poly_n, cfg.poly_sigma, pre, dev)
+        # the yardstick computes the same function (cuDNN sums in its own
+        # order): its largest difference from K2, against R's largest value
+        lib_err[f"L{lv.k}"] = [float((lib(src) - Rs[lv.k]).abs().max()),
+                               float(Rs[lv.k].abs().max())]
         k2.append((f"L{lv.k}",
                    lambda src=src, pre=pre: poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre),
                    lambda src=src, pre=pre: core.poly_exp(src, cfg.poly_n, cfg.poly_sigma, pre_taps=pre),
-                   work_polyexp(src, cfg.poly_n, pre is not None), None))
-    # beyond the kernel's former cap of poly_n 10, at level 0's shape
+                   work_polyexp(src, cfg.poly_n, pre is not None),
+                   lambda src=src, lib=lib: lib(src)))
+    # cv2's other poly_n (the kernel's other compiled n) and one beyond the
+    # kernel's former cap of poly_n 10 (the n read at run time), at level
+    # 0's shape
     pre = gaussian_kernel(3, 0.0)
-    k2.append(("poly_n11_level0", lambda: poly_exp(both, 11, 2.4, pre_taps=pre),
-               lambda: core.poly_exp(both, 11, 2.4, pre_taps=pre),
-               work_polyexp(both, 11, True), None))
-    run_cases("K2", k2, stats)
+    for n, sigma in ((7, 1.5), (11, 2.4)):
+        k2.append((f"poly_n{n}_level0",
+                   lambda n=n, sigma=sigma: poly_exp(both, n, sigma, pre_taps=pre),
+                   lambda n=n, sigma=sigma: core.poly_exp(both, n, sigma, pre_taps=pre),
+                   work_polyexp(both, n, True), None))
+    run_cases("K2", k2, stats, ptxas=ptxas_report("polyexp"),
+              library_max_abs_diff_and_max_abs_ref=lib_err)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     k1_cases = []
@@ -613,17 +663,28 @@ def unfused_phases(Rs, flows, plan, winsize: int, stats) -> None:
                        lambda o=o: core.update_matrices(*o), work_matrices(o[2]), None)
                       for label, o in ops.items()], stats)
     Ms = {label: update_matrices(*o) for label, o in ops.items()}
-    for gaussian, key in ((False, "K5b"), (True, "K5b_gaussian")):
-        window = "gaussian" if gaussian else "box"
-        lib = None if gaussian else library_box_solve(winsize)
-        run_cases("K5b", [(label, lambda M=M, g=gaussian: blur_solve(M, winsize, g),
-                           lambda M=M, g=gaussian: core.blur_solve(M, winsize, g),
-                           work_blur_solve(M, winsize, gaussian),
-                           None if lib is None else lambda M=M: lib(M))
-                          for label, M in Ms.items()], stats, key=key,
-                  phase=f"kernel_K5b_{window}", window=window, winsize=winsize)
-    stats["K5b"]["max_abs_err"] = max(stats["K5b"]["max_abs_err"],
-                                      stats["K5b_gaussian"]["max_abs_err"])
+    # the config's winsize at every level and the 8K one (K5b's former
+    # line, and the operands of ab_K1_vs_K5a_K5b_*), then winsize 63 at
+    # every 1080p level: the window K5b runs on its path (K1 takes the
+    # others); the kernels line gives winsize 63's box
+    ptxas = ptxas_report("blur_solve")
+    keys = []
+    for ws in (winsize, WIDE_WINDOW):
+        for gaussian in (False, True):
+            window = "gaussian" if gaussian else "box"
+            lib = None if gaussian else library_box_solve(ws)
+            key = f"K5b_{window}_{ws}"
+            keys.append(key)
+            run_cases("K5b", [(label, lambda M=M, g=gaussian, ws=ws: blur_solve(M, ws, g),
+                               lambda M=M, g=gaussian, ws=ws: core.blur_solve(M, ws, g),
+                               work_blur_solve(M, ws, gaussian),
+                               None if lib is None else lambda M=M, lib=lib: lib(M))
+                              for label, M in Ms.items()
+                              if ws == winsize or label.startswith("L")],
+                      stats, key=key, phase=f"kernel_K5b_{window}", window=window,
+                      winsize=ws, **({"ptxas": ptxas} if key == f"K5b_box_{WIDE_WINDOW}" else {}))
+    stats["K5b"] = {**stats[f"K5b_box_{WIDE_WINDOW}"],
+                    "max_abs_err": max(stats[k]["max_abs_err"] for k in keys)}
     del Ms
 
     # K1 at the 8K level, the TPU's column-chunked K8 territory
@@ -1181,8 +1242,8 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
 
 def profile_phase(dev, power) -> None:
     """Where the device time of one flow call + magnitude sums goes:
-    1080p B=16 under flags 0, 256 and 4 and with levels=5, and the 8K
-    pair (B=1), each profiled twice: torch.profiler over PROFILED calls
+    1080p B=16 under flags 0, 256 and 4, with levels=5 and with winsize
+    63, and the 8K pair (B=1), each profiled twice: torch.profiler over PROFILED calls
     after WARMUP.  Device work is the sum of the CUDA events' device time
     per call, its busy share that over the profiled wall time per call;
     the largest kernels are listed by name."""
@@ -1197,6 +1258,7 @@ def profile_phase(dev, power) -> None:
     cells = [("profile_1080p", hd, FarnebackConfig(flags=flags), seed)
              for flags in (0, 256, 4)]
     cells += [("profile_deep_1080p", hd, FarnebackConfig(levels=5), None),
+              ("profile_winsize63_1080p", hd, FarnebackConfig(winsize=WIDE_WINDOW), None),
               ("profile_8k", frames(*WIDE, dev, 1, SHIFT_8K), FarnebackConfig(), None)]
     for run in range(2):
         for phase, (prev, nxt), cfg, seed in cells:
@@ -1221,7 +1283,8 @@ def profile_phase(dev, power) -> None:
             device_ms = sum(by_name.values())
             require(device_ms > 0, f"{phase} flags {cfg.flags}: no device time traced")
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
-            emit(phase, run=run, flags=cfg.flags, levels=cfg.levels, batch=prev.shape[0],
+            emit(phase, run=run, flags=cfg.flags, levels=cfg.levels, winsize=cfg.winsize,
+                 batch=prev.shape[0],
                  calls=PROFILED, wall_ms_per_call=wall_ms, device_ms_per_call=device_ms,
                  busy_share=device_ms / wall_ms,
                  top_device_ms_per_call=[[name[:70], ms] for name, ms in top],
@@ -1232,8 +1295,8 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile the 1080p B=16 flow call under "
-                             "flags 0, 256 and 4 and levels=5, and the 8K "
-                             "pair (PERF.md section 5)")
+                             "flags 0, 256 and 4, levels=5 and winsize 63, "
+                             "and the 8K pair (PERF.md section 5)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1288,7 +1351,7 @@ def main(argv: list[str]) -> int:
               FarnebackConfig(flags=OPTFLOW_USE_INITIAL_FLOW), dev, golden,
               power, golden_key="seeded_1080x1920", seeded=True)
     torch.cuda.empty_cache()
-    e2e_phase("e2e_winsize63_1080p", 1080, 1920, FarnebackConfig(winsize=63),
+    e2e_phase("e2e_winsize63_1080p", 1080, 1920, FarnebackConfig(winsize=WIDE_WINDOW),
               dev, golden, power, stats)
     torch.cuda.empty_cache()
     e2e_phase("e2e_deep_1080p", 1080, 1920, FarnebackConfig(levels=5), dev,

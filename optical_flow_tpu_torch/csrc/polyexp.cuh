@@ -13,7 +13,9 @@
 //
 // The replicate border of the expansion repeats the staged value at the
 // clamped pixel (the smoothed edge at level 0).  The arithmetic follows
-// the plain version (models/farneback/core.py:poly_exp) op for op.
+// the plain version (models/farneback/core.py:poly_exp) op for op.  K2's
+// tiles use the register-blocked forms of 2 and 3 (vertical_run,
+// horizontal_run), which give each output the same bits.
 
 #pragma once
 
@@ -139,6 +141,70 @@ __device__ __forceinline__ void combine(const HSums& s, const PolyConsts& c,
   R[2] = s.b1 * c.ig03 + s.b5 * c.ig33;
   R[3] = s.b1 * c.ig03 + s.b4 * c.ig33;
   R[4] = s.b6 * c.ig55;
+}
+
+// Register-blocked forms of `vertical` and of the horizontal steps, for
+// tiles (K2): KB adjacent outputs at once from one sliding run of the
+// values they read, each output's chains still in tap order, so each
+// output gets the bits of the per-pixel helpers above.
+//
+// NTAPS > 0: the tap count, known at compile time (the loops unroll);
+// 0: `taps`.
+//
+// The three vertical correlations of KB adjacent positions: v(q) the q-th
+// staged value from the first window's top, q < taps + KB - 1, read once.
+template <int KB, int NTAPS, typename V>
+__device__ __forceinline__ void vertical_run(V v, int taps, const PolyConsts& c,
+                                             float (&a0)[KB], float (&a1)[KB],
+                                             float (&a2)[KB]) {
+  const int nt = NTAPS ? NTAPS : taps;
+  float w[KB];   // w[j] = v(k + j) at tap k
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    w[j] = v(j);
+    a0[j] = c.g[0] * w[j];
+    a1[j] = c.xg[0] * w[j];
+    a2[j] = c.xxg[0] * w[j];
+  }
+#pragma unroll
+  for (int k = 1; k < nt; ++k) {
+#pragma unroll
+    for (int j = 0; j < KB - 1; ++j) w[j] = w[j + 1];
+    w[KB - 1] = v(k + KB - 1);
+#pragma unroll
+    for (int j = 0; j < KB; ++j) {
+      a0[j] = a0[j] + c.g[k] * w[j];
+      a1[j] = a1[j] + c.xg[k] * w[j];
+      a2[j] = a2[j] + c.xxg[k] * w[j];
+    }
+  }
+}
+
+// The six horizontal correlations of KB adjacent outputs: r(q, r0, r1, r2)
+// gives the q-th column's vertical correlations from the first window's
+// left, q < taps + KB - 1, read once.
+template <int KB, int NTAPS, typename Rd>
+__device__ __forceinline__ void horizontal_run(Rd r, int taps, const PolyConsts& c,
+                                               HSums (&s)[KB]) {
+  const int nt = NTAPS ? NTAPS : taps;
+  float w0[KB], w1[KB], w2[KB];
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    r(j, w0[j], w1[j], w2[j]);
+    horizontal_first(s[j], c, w0[j], w1[j], w2[j]);
+  }
+#pragma unroll
+  for (int k = 1; k < nt; ++k) {
+#pragma unroll
+    for (int j = 0; j < KB - 1; ++j) {
+      w0[j] = w0[j + 1];
+      w1[j] = w1[j + 1];
+      w2[j] = w2[j + 1];
+    }
+    r(k + KB - 1, w0[KB - 1], w1[KB - 1], w2[KB - 1]);
+#pragma unroll
+    for (int j = 0; j < KB; ++j) horizontal_step(s[j], c, k, w0[j], w1[j], w2[j]);
+  }
 }
 
 // R of one pixel from its (2n+1)^2 window of staged values, sv(k, j) the

@@ -76,90 +76,6 @@ __host__ __device__ constexpr size_t smem_floats(int m) {
   return 5 * G * m_row_stride(m) + 5 * ring_rows(m) * HS + 2 * m + 1;
 }
 
-// K adjacent window sums of 2m + 1 taps, a[k][j] = sum_i t[i] v[j + i][k]
-// (the box: t = 1), each added in tap order.  load(q, v) gives the five
-// channels of the q-th value, q = 0 .. 2m + K - 1, called once each in
-// that order.  Sum j starts at q = j and ends at q = j + 2m: the first K
-// and the last K - 1 values are peeled (unrolled), so that the loop
-// between them adds to all K sums with no test.
-template <bool GAUSS, typename Load>
-__device__ __forceinline__ void window_sums(Load load, const float* t, int m,
-                                            float (&a)[5][K]) {
-  const int n = 2 * m + 1;
-  float v[5];
-  float tw[K];   // tw[j] = t[q - j], the tap of value q in sum j
-  if (n < K) {   // windows shorter than K: every step tests its sums
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      tw[j] = 1.0f;
-#pragma unroll
-      for (int k = 0; k < 5; ++k) a[k][j] = 0.0f;
-    }
-    for (int q = 0; q < n + K - 1; ++q) {
-      load(q, v);
-      if (GAUSS) {
-#pragma unroll
-        for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
-        tw[0] = q < n ? t[q] : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const int i = q - j;
-        if (i >= 0 && i < n) {
-#pragma unroll
-          for (int k = 0; k < 5; ++k) {
-            const float tv = oft::term<GAUSS>(tw[j], v[k]);
-            a[k][j] = i == 0 ? tv : a[k][j] + tv;
-          }
-        }
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) tw[j] = 1.0f;
-#pragma unroll
-  for (int q = 0; q < K; ++q) {          // sum q starts; sums j < q go on
-    load(q, v);
-    if (GAUSS) {
-#pragma unroll
-      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
-      tw[0] = t[q];
-    }
-#pragma unroll
-    for (int j = 0; j <= q; ++j)
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        const float tv = oft::term<GAUSS>(tw[j], v[k]);
-        a[k][j] = j == q ? tv : a[k][j] + tv;
-      }
-  }
-  for (int q = K; q < n; ++q) {          // all K sums go on
-    load(q, v);
-    if (GAUSS) {
-#pragma unroll
-      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
-      tw[0] = t[q];
-    }
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-#pragma unroll
-      for (int k = 0; k < 5; ++k) a[k][j] = a[k][j] + oft::term<GAUSS>(tw[j], v[k]);
-  }
-#pragma unroll
-  for (int e = 1; e < K; ++e) {          // sums j < e have ended
-    load(n - 1 + e, v);
-    if (GAUSS) {
-#pragma unroll
-      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
-    }
-#pragma unroll
-    for (int j = e; j < K; ++j)
-#pragma unroll
-      for (int k = 0; k < 5; ++k) a[k][j] = a[k][j] + oft::term<GAUSS>(tw[j], v[k]);
-  }
-}
-
 // GAUSS: weighted sums with the window taps; else plain adds (the box).
 template <bool GAUSS>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -239,7 +155,7 @@ update_blur_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
     if (lane < n) {   // lane: the row; warp: K adjacent output columns
       const float* p = Mb + lane * MWp + K * warp;
       float a[5][K];
-      window_sums<GAUSS>(
+      oft::window_sums<GAUSS, K>(
           [&](int q, float* v) {
 #pragma unroll
             for (int k = 0; k < 5; ++k) v[k] = p[k * G * MWp + q];
@@ -263,7 +179,7 @@ update_blur_kernel(const float* __restrict__ R0, const float* __restrict__ R1,
     if (x >= W || ybase >= y_end) continue;
     int slot = (ybase - y0) % R;     // ring slot of row ybase - m
     float s[5][K];
-    window_sums<GAUSS>(
+    oft::window_sums<GAUSS, K>(
         [&](int, float* v) {
 #pragma unroll
           for (int k = 0; k < 5; ++k) v[k] = Hr[(k * R + slot) * HS + lane];

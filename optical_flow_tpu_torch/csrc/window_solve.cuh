@@ -1,6 +1,7 @@
 // The window sum and solve of an iterate step.  `term` and `solve_store`
-// are shared by K1 (update_blur.cu) and K7 (update_blur_poly.cu), so that
-// both sum and solve by the same instructions; `window_sum_solve` is K7's:
+// are shared by K1 (update_blur.cu), K5b (blur_solve.cu) and K7
+// (update_blur_poly.cu), and `window_sums` by K1 and K5b, so that they sum
+// and solve by the same instructions; `window_sum_solve` is K7's:
 // from M on a block's output tile plus its m-pixel halo in shared memory
 // to the new flow, with
 // the box window (plain adds, then a 1 / winsize^2 scale) or the Gaussian
@@ -35,6 +36,90 @@ __device__ __forceinline__ void solve_store(const float* s, float scale,
   const float idet = 1.0f / (g11 * g22 - g12 * g12 + 1e-3f);
   out[p] = (g11 * h2 - g12 * h1) * idet;          // dx
   out[plane + p] = (g22 * h1 - g12 * h2) * idet;  // dy
+}
+
+// K adjacent window sums of 2m + 1 taps, a[k][j] = sum_i t[i] v[j + i][k]
+// (the box: t = 1), each added in tap order, for C channels k (M's five,
+// or one).  load(q, v) gives the C channels of the q-th value, q = 0 ..
+// 2m + K - 1, called once each in that order.  Sum j starts at q = j and ends at q = j + 2m: the first K
+// and the last K - 1 values are peeled (unrolled), so that the loop
+// between them adds to all K sums with no test.
+template <bool GAUSS, int K, int C, typename Load>
+__device__ __forceinline__ void window_sums(Load load, const float* t, int m,
+                                            float (&a)[C][K]) {
+  const int n = 2 * m + 1;
+  float v[C];
+  float tw[K];   // tw[j] = t[q - j], the tap of value q in sum j
+  if (n < K) {   // windows shorter than K: every step tests its sums
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      tw[j] = 1.0f;
+#pragma unroll
+      for (int k = 0; k < C; ++k) a[k][j] = 0.0f;
+    }
+    for (int q = 0; q < n + K - 1; ++q) {
+      load(q, v);
+      if (GAUSS) {
+#pragma unroll
+        for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+        tw[0] = q < n ? t[q] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int i = q - j;
+        if (i >= 0 && i < n) {
+#pragma unroll
+          for (int k = 0; k < C; ++k) {
+            const float tv = term<GAUSS>(tw[j], v[k]);
+            a[k][j] = i == 0 ? tv : a[k][j] + tv;
+          }
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) tw[j] = 1.0f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {          // sum q starts; sums j < q go on
+    load(q, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+      tw[0] = t[q];
+    }
+#pragma unroll
+    for (int j = 0; j <= q; ++j)
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const float tv = term<GAUSS>(tw[j], v[k]);
+        a[k][j] = j == q ? tv : a[k][j] + tv;
+      }
+  }
+  for (int q = K; q < n; ++q) {          // all K sums go on
+    load(q, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+      tw[0] = t[q];
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int k = 0; k < C; ++k) a[k][j] = a[k][j] + term<GAUSS>(tw[j], v[k]);
+  }
+#pragma unroll
+  for (int e = 1; e < K; ++e) {          // sums j < e have ended
+    load(n - 1 + e, v);
+    if (GAUSS) {
+#pragma unroll
+      for (int j = K - 1; j > 0; --j) tw[j] = tw[j - 1];
+    }
+#pragma unroll
+    for (int j = e; j < K; ++j)
+#pragma unroll
+      for (int k = 0; k < C; ++k) a[k][j] = a[k][j] + term<GAUSS>(tw[j], v[k]);
+  }
 }
 
 // Ms: [5][MH][MW] M on the TX x TY tile at (x0, y0) plus its halo (MH =

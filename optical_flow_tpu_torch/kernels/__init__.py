@@ -19,6 +19,8 @@ version for a CPU tensor; nothing falls back from one to the other.
 run can show that the main path went through the kernels.
 """
 
+import functools
+
 import torch
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0,
@@ -26,6 +28,12 @@ LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0,
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def reset_launches() -> None:

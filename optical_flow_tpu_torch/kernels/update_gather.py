@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, output, raise_on_error)
+                                            on_cuda, output, raise_on_error,
+                                            sm_count)
 from optical_flow_tpu_torch.kernels.blur_solve import window_taps
 from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
 from optical_flow_tpu_torch.models.farneback import core
@@ -77,18 +78,13 @@ def k1_fits(winsize: int) -> bool:
     return winsize <= _K1_MAX_WINSIZE and k1_smem(winsize) <= MAX_SMEM
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _rows_per_block(B: int, h: int, w: int, device: torch.device) -> int:
     """Output rows each K1 block walks: the most of 256, 128, 64 and 32
     that still gives six blocks per SM (two waves at three resident
     blocks), so small levels trade some vertical halo for a full card."""
     strips = -(-w // _STRIP)
     for rows in (256, 128, 64):
-        if B * strips * -(-h // rows) >= 6 * _sm_count(device):
+        if B * strips * -(-h // rows) >= 6 * sm_count(device):
             return rows
     return _STRIP
 

@@ -11,7 +11,8 @@ wider than cv2's (poly_n 11), K7 (the step with the expansion derived
 in-kernel) against K2 -> K1 to the bit, alone, per level and on the
 whole path with FUSE_POLYEXP on, and the strip-walking K1 and the
 band-staging K3 at shapes that straddle their strip, ring and tile
-edges.
+edges, and the tile-staging K2 and strip-walking K5b equal to their plain
+versions to the bit at tile edges, every 1080p level and row-block size.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -704,3 +705,99 @@ def test_gauss_resize_kernel_bit_equal(dev, h, w, ntaps, oh, ow, dtype):
         odd.copy_(img)
         assert torch.equal(gauss_resize(odd, taps, ow, oh), ref)
     assert kernels.LAUNCHES["K3"] >= 1
+
+
+K2_BIT_SHAPES = [(37, 53), (17, 129), (2, 40), (40, 2), (3, 3), (3, 200), (5, 7)]
+
+
+@pytest.mark.parametrize("kind", ["u8_pre", "f32"])
+@pytest.mark.parametrize("poly_n", [1, 2, 5, 7, 11, 96])
+@pytest.mark.parametrize("h,w", K2_BIT_SHAPES)
+def test_poly_exp_kernel_bit_equal(dev, h, w, poly_n, kind):
+    """K2 against its plain version to the bit: heights and widths that
+    are not multiples of the tile, frames of 2 and 3 rows or columns and
+    narrower than the halo, uint8 with the pre-smooth and f32 without;
+    also from an unaligned start (the scalar band path)."""
+    img = _frames(3, h, w, seed=poly_n)
+    pre = PRE_TAPS if kind == "u8_pre" else None
+    if kind == "f32":
+        img = img.astype(np.float32) * 0.37 - 20.0
+    img = torch.as_tensor(img).to(dev)
+    sigma = 0.3 * poly_n if poly_n > 2 else 1.1
+    ref = core.poly_exp(img, poly_n, sigma, pre_taps=pre)
+    got = poly_exp(img, poly_n, sigma, pre_taps=pre)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    odd = torch.empty(img.numel() + 1, dtype=img.dtype, device=dev)[1:].view(img.shape)
+    odd.copy_(img)
+    assert torch.equal(poly_exp(odd, poly_n, sigma, pre_taps=pre), ref)
+    assert kernels.LAUNCHES["K2"] == 2
+
+
+def _levels_1080p():
+    return [(lv.k, lv.height, lv.width)
+            for lv in build_plan(1080, 1920, FarnebackConfig()).levels]
+
+
+@pytest.mark.parametrize("k,h,w", _levels_1080p())
+def test_poly_exp_kernel_1080p_levels(dev, k, h, w):
+    """K2 at each 1080p level's shape (uint8 frames with the pre-smooth at
+    level 0, f32 levels above), equal to its plain version, and K7 equal
+    to K2 -> K1 there, box and Gaussian window."""
+    kind = "u8_pre" if k == 0 else "f32"
+    img0, img1, flow, pre = _poly_operands(dev, h, w, kind, 6.0)
+    R = poly_exp(torch.cat([img0, img1]), 5, 1.2, pre_taps=pre)
+    ref = core.poly_exp(torch.cat([img0, img1]), 5, 1.2, pre_taps=pre)
+    torch.cuda.synchronize()
+    assert torch.equal(R, ref), float((R - ref).abs().max())
+    for gaussian in (False, True):
+        got = update_blur_poly(img0, img1, flow, 15, gaussian, 5, 1.2, pre)
+        split = update_blur(R[:2], R[2:], flow, 15, gaussian)
+        torch.cuda.synchronize()
+        assert torch.equal(got, split), float((got - split).abs().max())
+
+
+K5B_WINDOWS = [(w, g) for w in (1, 2, 3, 15, 61, 62, 63, 64, 127, 201, 301)
+               for g in (False, True) if not (g and w == 1)]
+
+
+@pytest.mark.parametrize("winsize,gaussian", K5B_WINDOWS)
+@pytest.mark.parametrize("h,w", [(5, 7), (37, 53), (72, 129), (33, 130)])
+def test_blur_solve_kernel_bit_equal(dev, h, w, winsize, gaussian):
+    """K5b against its plain version to the bit: odd shapes, frames
+    smaller than the window, the strip kernel up to winsize 261 and the
+    tile kernel beyond it (301); also from an unaligned M (scalar
+    staging)."""
+    from optical_flow_tpu_torch.kernels.blur_solve import k5b_strip_fits
+    R0, R1, flow = _step_operands(dev, h, w)
+    M = core.update_matrices(R0, R1, flow)
+    ref = core.blur_solve(M, winsize, gaussian)
+    got = blur_solve(M, winsize, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    odd = torch.empty(M.numel() + 1, device=dev)[1:].view(M.shape)
+    odd.copy_(M)
+    assert torch.equal(blur_solve(odd, winsize, gaussian), ref)
+    assert k5b_strip_fits(winsize) == (winsize <= 261)
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("B,h,w,rows", [(16, 600, 1920, 320), (4, 700, 960, 256),
+                                        (2, 300, 256, 32)])
+def test_blur_solve_row_blocks(dev, B, h, w, rows, gaussian):
+    """K5b's strip blocks at 320, 256 and 32 rows (the last block of a
+    strip walking fewer): K5a -> K5b equal to K1 to the bit at winsize 15
+    and 61, and to its plain version at 63."""
+    from optical_flow_tpu_torch.kernels import blur_solve as k5b
+    assert k5b._rows_per_block(B, h, w, 63, dev) == rows
+    R0, R1, flow = _wide_operands(dev, B, h, w, 6.0)
+    M = update_matrices(R0, R1, flow)
+    for winsize in (15, 61):
+        got = blur_solve(M, winsize, gaussian)
+        ref = update_blur(R0, R1, flow, winsize, gaussian)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+    got = blur_solve(M, 63, gaussian)
+    ref = core.blur_solve(M, 63, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())

@@ -8,7 +8,9 @@
   modules.
 - The redesigned K1 and K3 take every level they took before: K1 every
   winsize up to 61 (no wider, so winsize 63 stays on K5a -> K5b), K3 every
-  level of the pyramids below that it took, pinned as literals.
+  level of the pyramids below that it took, pinned as literals; the
+  redesigned K2 every poly_n up to 96, and K5b's strip kernel every window
+  up to 261 (the tile kernel the rest).
 """
 
 import fnmatch
@@ -19,6 +21,8 @@ from pathlib import Path
 
 import pytest
 
+from optical_flow_tpu_torch.kernels import polyexp
+from optical_flow_tpu_torch.kernels.blur_solve import k5b_smem, k5b_strip_fits
 from optical_flow_tpu_torch.kernels.gauss_resize import _tile, k3_fits
 from optical_flow_tpu_torch.kernels.update_gather import k1_fits, k1_smem
 from optical_flow_tpu_torch.kernels import MAX_SMEM
@@ -111,6 +115,37 @@ def test_k1_takes_every_winsize_up_to_61():
     assert all(k1_fits(w) for w in range(1, 62))
     assert not k1_fits(63)
     assert k1_smem(61) <= MAX_SMEM
+
+
+def test_k2_takes_every_poly_n_up_to_96():
+    assert all(polyexp.k2_fits(n) for n in range(1, 97))
+    assert not polyexp.k2_fits(97) and not polyexp.k2_fits(0)
+
+
+# K2's tile per (poly_n, width, element size, pre-smooth): (tile_w,
+# tile_h, band staged, shared memory bytes)
+K2_TILES = {
+    (5, 1920, 1, True): (128, 16, True, 41248),
+    (5, 960, 4, False): (64, 16, True, 22720),
+    (5, 480, 4, False): (128, 16, True, 41664),
+    (5, 240, 4, False): (128, 16, True, 41664),
+    (5, 129, 1, True): (32, 16, True, 13040),
+    (7, 1920, 1, True): (128, 16, True, 44736),
+    (11, 1920, 1, True): (128, 16, True, 56912),
+    (96, 1920, 1, True): (32, 16, False, 229568),
+    (96, 1920, 4, False): (32, 16, False, 229568),
+}
+
+
+@pytest.mark.parametrize("key", sorted(K2_TILES))
+def test_k2_tile(key):
+    assert polyexp._tile(*key) == K2_TILES[key]
+
+
+def test_k5b_strip_takes_every_winsize_up_to_261():
+    assert all(k5b_strip_fits(w) for w in range(1, 262))
+    assert not any(k5b_strip_fits(w) for w in (262, 263, 301, 401))
+    assert k5b_smem(63) == 74708 and k5b_smem(15) == 36692
 
 
 # The levels K3 took before its redesign, per pyramid: (level, taps,
