@@ -11,7 +11,10 @@ PyTorch version at the shapes of the 1080p B=16 paths (the K1 and K3
 lines also carry ptxas's registers, spills and shared memory per kernel
 and the blocks resident per SM; K5a, K5b and K1,
 box and Gaussian, also at one 4320x7680 level; K6 at the two levels of a
-five-level 1080p pyramid that K3 does not take; K2 also at poly_n 7 and 11; K5b,
+five-level 1080p pyramid that K3 does not take, with ptxas's report and
+its occupancy, and at 3 to 159 taps, uint8 and f32, on 1080x1920, 37x1001
+and a frame within the radius; K4 at B=16 and B=1 on 1080x1920 and
+1079x1917 and on all-zero frames; K2 also at poly_n 7 and 11; K5b,
 box and Gaussian, at winsize 15 and at winsize 63, where its path runs
 it; K7, box and Gaussian, at every level, and equal to K2 -> K1 to the
 bit; K2 and K5b with ptxas's report too),
@@ -74,10 +77,14 @@ EPE_GATE = 0.5            # BASELINE.md's interior EPE gate, px
 WIDE = (4320, 7680)       # wider than the TPU kernels' 4096-column window
 WIDE_WINDOW = 63          # a box beyond K1's tile: the window K5b runs
 SHIFT_8K = (3, 5)         # bench.py's 8K row: true flow (-5, -3)
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
-# f32 operations/s outside the tensor cores, for each kernel's bound.
+# Peaks of one H100 SXM, for each kernel's bound: HBM3 bytes/s (NVIDIA's
+# data sheet) and f32 operations/s outside the tensor cores.  The data
+# sheet's 67e12 counts a fused multiply-add as two operations; every
+# kernel here is built with --fmad=false and the work_* functions count
+# each multiply and each add, so one counted operation is one issued
+# instruction: 132 SMs x 128 f32 lanes x 1.98 GHz = 33.5e12 a second.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 33.5e12
 BGR_SHARE = 1e-3          # at most this share of bytes 1 level off (and none more)
 GOLDEN_BGR_SHARE = 1e-2   # sampled bytes that may differ from the JAX golden file
 KERNEL_INFO = {
@@ -204,7 +211,7 @@ SOLVE_OPS = 19    # scale + 2x2 solve per pixel
 def bound(work) -> tuple:
     """(ms, "bytes" or "operations"): the least time of `work` = (bytes,
     ops) on an H100 SXM, the larger of bytes over HBM's rate and ops over
-    the f32 peak."""
+    the unfused f32 issue rate."""
     t_b = work[0] / HBM_BYTES_PER_S * 1e3
     t_o = work[1] / F32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -800,10 +807,33 @@ def ab_gauss_phase(Rs, flows, plan, cfg, stats) -> None:
          rule="K1" if k1_fits(winsize) else "K5a_K5b")
 
 
+def occupancy_k6(ntaps: int, w: int, dev) -> dict:
+    """K6's block (kernels/gauss.py:tile), its dynamic shared memory and
+    the blocks resident per SM, uint8 and f32."""
+    import ctypes
+    from optical_flow_tpu_torch.kernels import _build
+    from optical_flow_tpu_torch.kernels.gauss import tile
+    ty, tx = tile(ntaps, w)
+    f = _build.library("gauss").oft_gauss_occupancy
+    out = {"rows": ty, "columns": tx}
+    for u8 in (1, 0):
+        blocks, smem = ctypes.c_int(), ctypes.c_int()
+        require(f(u8, ntaps, ty, tx, dev.index, ctypes.byref(blocks),
+                  ctypes.byref(smem)) == 0, "K6 occupancy query")
+        out["uint8" if u8 else "f32"] = {"smem_bytes": smem.value,
+                                         "blocks_per_sm": blocks.value}
+    return out
+
+
 def kernel_k6_phase(both, stats) -> None:
     """K6 at the two levels of the five-level 1080p pyramid that K3 does
     not take (L4: 39 taps, L5: 79), on the (32, 1080, 1920) uint8 frames
-    of the B=16 pairs: equal to its plain version (max abs error 0)."""
+    of the B=16 pairs: equal to its plain version (max abs error 0); the
+    sum over those two levels is the kernels line's.  Then, at 3 taps and
+    at the 39, 79 and 159 that the pyramids send to K6 up to 4320x7680,
+    uint8 and f32, two frames of 1080x1920, of 37x1001 and of a height
+    within the radius (more than one reflection)."""
+    import torch
     from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
     from optical_flow_tpu_torch.kernels.gauss_resize import k3_fits
     from optical_flow_tpu_torch.models.farneback import core
@@ -811,19 +841,34 @@ def kernel_k6_phase(both, stats) -> None:
                                                                 gaussian_kernel)
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
+    def case(label, img, kern, lib=True):
+        blur = library_blur(kern, img.device) if lib else None
+        return (label, lambda: gaussian_blur(img, kern),
+                lambda: core.gaussian_blur_reflect101(img, kern),
+                work_blur(img, len(kern)), None if blur is None else lambda: blur(img))
+
     _, h, w = both.shape
-    cases = []
+    cases, occupancy = [], {}
     for lv in build_plan(h, w, FarnebackConfig(levels=5)).levels:
         if lv.k == 0 or k3_fits(lv.smooth_ksize, h, w, lv.width):
             continue
         kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
-        lib = library_blur(kern, both.device)
-        cases.append((f"L{lv.k}_{len(kern)}taps",
-                      lambda kern=kern: gaussian_blur(both, kern),
-                      lambda kern=kern: core.gaussian_blur_reflect101(both, kern),
-                      work_blur(both, len(kern)), lambda lib=lib: lib(both)))
+        cases.append(case(f"L{lv.k}_{len(kern)}taps", both, kern))
+        occupancy[f"{len(kern)}taps"] = occupancy_k6(len(kern), w, both.device)
     require(len(cases) > 0, "no level of the five-level pyramid goes to K6")
-    run_cases("K6", cases, stats)
+    gen = np.random.default_rng(6)
+    for ntaps in (3, 39, 79, 159):
+        kern = gaussian_kernel(ntaps, (ntaps - 1) / 5)
+        for fh, fw in ((h, w), (37, 1001), (max(1, ntaps // 2), 300)):
+            u8 = torch.as_tensor(gen.integers(0, 256, (2, fh, fw), dtype=np.uint8),
+                                 device=both.device)
+            for img in (u8, u8.float() / 7.0 - 3.0):
+                dt = "u8" if img.dtype == torch.uint8 else "f32"
+                # the library call pads by r on each side, which reflect
+                # refuses past the frame's side
+                cases.append(case(f"{ntaps}taps_{dt}_{fh}x{fw}", img, kern,
+                                  lib=min(fh, fw) > ntaps // 2))
+    run_cases("K6", cases, stats, ptxas=ptxas_report("gauss"), occupancy=occupancy)
 
 
 def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
@@ -974,18 +1019,21 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
 
 
 def kernel_k4_phase(h: int, w: int, dev, stats) -> None:
-    """K4 against its plain version: a B=16 random flow of up to 6 px,
-    and one all-zero frame (constant magnitude: value 0)."""
+    """K4 against its plain version, byte-equal: a random flow of up to 6
+    px at B=16 (the kernels line's case) and B=1, on 1080x1920 and on
+    1079x1917 (planes not 16-byte aligned: scalar quads), and all-zero
+    frames (constant magnitude: value 0)."""
     import torch
     from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
     from optical_flow_tpu_torch.ops import colorize
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = {
-        f"random_B{BATCH}": (torch.rand((BATCH, 2, h, w), generator=gen,
-                                        device=dev) - 0.5) * 12.0,
-        "zero_B1": torch.zeros((1, 2, h, w), device=dev),
-    }
+    cases = {}
+    for fh, fw in ((h, w), (h - 1, w - 3)):
+        for batch in (BATCH, 1):
+            cases[f"random_B{batch}_{fh}x{fw}"] = (torch.rand(
+                (batch, 2, fh, fw), generator=gen, device=dev) - 0.5) * 12.0
+        cases[f"zero_B1_{fh}x{fw}"] = torch.zeros((1, 2, fh, fw), device=dev)
     rows = []
     for label, flow in cases.items():
         got = flow_to_bgr_planar(flow)
@@ -1003,16 +1051,15 @@ def kernel_k4_phase(h: int, w: int, dev, stats) -> None:
         bound_ms, bound_by = bound((11 * px, 40 * px))
         rows.append({"case": label, "shape": list(flow.shape), "max_abs_err": diff,
                      "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     # the flow read by both launches, BGR written once
-                     "gb_per_s_at_19_b_per_px": 19 * px / t_k / 1e6})
+                     "bound_by": bound_by, "bound_share": bound_ms / t_k,
+                     "gb_per_s_at_11_b_per_px": 11 * px / t_k / 1e6})
     del cases
     stats["K4"] = {"ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
                    "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
                    "library_ms": None,
                    "max_abs_err": max(r["max_abs_err"] for r in rows)}
     emit("kernel_K4", name=KERNEL_INFO["K4"][0], tolerance="byte-equal",
-         cases=rows)
+         cases=rows, ptxas=ptxas_report("colorize"))
 
 
 def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,

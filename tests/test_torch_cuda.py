@@ -224,6 +224,27 @@ def test_gaussian_blur_kernel(dev, ntaps, h, w, dtype):
     assert kernels.LAUNCHES["K6"] == 1
 
 
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+@pytest.mark.parametrize("h,w", [(1080, 1920), (37, 1001), ("r", 300)])
+@pytest.mark.parametrize("ntaps", [3, 39, 79, 159])
+def test_gaussian_blur_kernel_at_the_pyramids_taps(dev, ntaps, h, w, dtype):
+    """K6 at the pyramids' tap counts on a 1080p batch, an odd 37x1001
+    frame and a frame whose height is at most the radius ("r": reflected
+    more than once), uint8 and f32: equal to its plain version."""
+    r = ntaps // 2
+    h = max(1, r) if h == "r" else h
+    img = _frames(2, h, w, seed=ntaps + h)
+    if dtype == "f32":
+        img = img.astype(np.float32) / 7.0 - 3.0
+    img = torch.as_tensor(img).to(dev)
+    taps = gaussian_kernel(ntaps, (ntaps - 1) / 5)
+    got = gaussian_blur(img, taps)
+    ref = core.gaussian_blur_reflect101(img, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert kernels.LAUNCHES["K6"] == 1
+
+
 @pytest.mark.parametrize("pair", ["smooth", "boundary"])
 @pytest.mark.parametrize("h,w", [(96, 128), (72, 129), (37, 53)])
 def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
@@ -276,6 +297,29 @@ def test_colorize_kernel(dev, h, w, B):
     assert torch.equal(got, ref)
     assert torch.equal(got.cpu(), colorize.flow_to_bgr_planar(flow.cpu()))
     assert kernels.LAUNCHES["K4"] == 1
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("h,w", [(1079, 1917), (1080, 1920)])
+def test_colorize_kernel_at_the_visualizer_shapes(dev, h, w, B):
+    """K4 at the visualizer's chunk and at one pair, on an odd frame (its
+    planes unaligned: scalar quads) and a 1080p one (16-byte loads), with
+    an all-zero frame last: byte-equal to the plain version."""
+    flow = (np.random.default_rng(B + h).random((B, 2, h, w), dtype=np.float32)
+            - 0.5) * 12.0
+    if B > 1:
+        flow[-1] = 0.0
+    flow = torch.as_tensor(flow).to(dev)
+    got = flow_to_bgr_planar(flow)
+    ref = colorize.flow_to_bgr_planar(flow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if B > 1:
+        assert not bool(got[-1].any())
+    zero = flow_to_bgr_planar(torch.zeros((1, 2, h, w), device=dev))
+    torch.cuda.synchronize()
+    assert not bool(zero.any())
+    assert kernels.LAUNCHES["K4"] == 2
 
 
 @pytest.mark.parametrize("h,w", [(72, 129), (37, 53)])

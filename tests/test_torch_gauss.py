@@ -17,7 +17,7 @@ import torch
 
 from optical_flow_tpu.models.farneback import core as jcore
 from optical_flow_tpu_torch import kernels
-from optical_flow_tpu_torch.kernels.gauss import block_rows, gaussian_blur
+from optical_flow_tpu_torch.kernels.gauss import gaussian_blur, smem_bytes, tile
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
 from optical_flow_tpu_torch.models.farneback import core as tcore
 from optical_flow_tpu_torch.models.farneback.flow import _level_images
@@ -95,10 +95,21 @@ def test_k3_fits_limits():
 
 
 def test_block_rows_shrink_with_the_taps():
-    assert block_rows(3) == block_rows(79) == block_rows(249) == 64
-    assert block_rows(1001) == 48
-    assert block_rows(2 * 1556 + 1) == 16
-    assert block_rows(2 * 1557 + 1) == 0
+    """K6's tile chooser: 32 rows until the taps' halo crowds them out,
+    then 16; spans narrow as the taps grow; every odd tap count up to 3113
+    (the earlier 128 x 16 block's limit) fits one block's shared memory at
+    any width, and two blocks share an SM at the pyramids' 39-159 taps."""
+    assert tile(3, 1920)[0] == tile(79, 1920)[0] == tile(249, 1920)[0] == 32
+    assert tile(1001, 1920)[0] == 32 and tile(1751, 1920)[0] == 16
+    assert tile(3113, 1920) == (16, 256)
+    assert tile(3403, 64) == (0, 0)
+    for ntaps in (39, 79, 159):
+        assert 2 * (smem_bytes(ntaps, *tile(ntaps, 1920)) + 1024) <= 228 * 1024
+    for w in (1, 37, 1001, 1920, 7680):
+        for ntaps in range(1, 3114, 2):
+            ty, tx = tile(ntaps, w)
+            assert ty in (32, 16) and tx % 64 == 0 and tx >= 64
+            assert smem_bytes(ntaps, ty, tx) <= kernels.MAX_SMEM
 
 
 def test_wrappers_on_cpu_are_the_plain_versions():

@@ -1,4 +1,5 @@
-"""The index maps of the redesigned K2 and K5b, emulated in numpy on the CPU.
+"""The index maps of the redesigned K2, K5b, K6 and K4, emulated in numpy on
+the CPU.
 
 No CUDA kernel runs here, so these tests repeat what each kernel does with
 its indices, in numpy f32 with each chain in tap order, and hold the
@@ -15,6 +16,17 @@ bit, on small frames whose tiles and strips meet every border:
   left of x0 - m (clamped), each row's horizontal sums into a ring of
   2m + G rows at slot (y - y0 + m) mod R, each output row's vertical sum
   from the ring, the solve.
+- K6 (`csrc/gauss.cu`): per block of `gauss.tile`'s rows and columns, the
+  4-aligned column span that the horizontal taps reach (word loads where
+  the word lies in the frame, reflected scalar columns elsewhere), the
+  reflected rows, the vertical run of 8 rows x 4 columns a thread and the
+  horizontal run of 8 outputs a lane from a ring whose slot is m % 8,
+  taps in chunks of 8 zero-padded past the count.
+- K4 (`csrc/colorize.cu`): the launch plan, per frame of each group the
+  slices of 4-pixel quads (the ragged last quad), the magnitudes and hues
+  kept on chip up to the cache's capacity and recomputed past it, the
+  per-block (min, max) pairs folded after every block of the frame has
+  published, then the map.
 """
 
 import numpy as np
@@ -22,8 +34,12 @@ import pytest
 import torch
 
 from optical_flow_tpu_torch.kernels import blur_solve as k5b
+from optical_flow_tpu_torch.kernels import gauss as k6
 from optical_flow_tpu_torch.kernels import polyexp as k2
 from optical_flow_tpu_torch.models.farneback import core
+from optical_flow_tpu_torch.ops import colorize
+from optical_flow_tpu_torch.ops.color import hsv2bgr_planes
+from optical_flow_tpu_torch.ops.polar import fast_atan2_deg, magnitude
 from optical_flow_tpu_torch.models.farneback.params import (gaussian_kernel,
                                                             poly_exp_weights)
 
@@ -196,3 +212,270 @@ def test_k5b_strip_equals_plain(h, w, winsize, gaussian, sw, G, rows):
     got = emulate_k5b(M, winsize, gaussian, sw, G, rows)
     ref = core.blur_solve(torch.as_tensor(M)[None], winsize, gaussian)[0].numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _reflect101_any(i, n):
+    """REFLECT_101 with any number of reflections (csrc/gauss.cu)."""
+    if 0 <= i < n:
+        return i
+    if n == 1:
+        return 0
+    period = 2 * (n - 1)
+    i = abs(i) % period
+    return period - i if i >= n else i
+
+
+def corr_run(ld, taps, nt, K=8, prefetch=False, nonneg=False):
+    """K6's correlation run: K chains acc[j] = sum_i taps[i] * x(j + i) in
+    tap order, x(m) = ld(m) kept in ring slot m % K; the taps in chunks of
+    K (zero-padded past nt).  `nonneg` (uint8 frames): the chains start at
+    +0 and every chunk runs whole; else the first tap is a product and the
+    last chunk is guarded.  With `prefetch`, each chunk's values are fetched
+    a chunk ahead, as the kernel's word loader does."""
+    w = [ld(m) for m in range(K - 1)] + [None]
+    tk = np.asarray(taps, f32)
+
+    def step(u, x, t):
+        w[(u + K - 1) % K] = x
+        for j in range(K):
+            acc[j] = acc[j] + f32(t) * w[(u + j) % K]
+
+    def chunk(i0):
+        return [ld(i0 + u + K - 1) for u in range(K)]
+
+    buf = chunk(0) if prefetch else None
+    i0 = 0
+    if nonneg:
+        acc = [f32(0.0) * w[0] for _ in range(K)]
+    else:
+        w[K - 1] = buf[0] if prefetch else ld(K - 1)
+        acc = [f32(taps[0]) * w[j] for j in range(K)]
+        nxt = chunk(K) if prefetch and K < nt else None
+        for u in range(1, K):
+            if u < nt:
+                step(u, buf[u] if prefetch else ld(u + K - 1), tk[u])
+        buf = nxt
+        i0 = K
+    full = nt if nonneg else nt - K + 1
+    while i0 < full:
+        nxt = chunk(i0 + K) if prefetch and i0 + K < nt else None
+        for u in range(K):
+            step(u, buf[u] if prefetch else ld(i0 + u + K - 1), tk[i0 + u])
+        buf = nxt
+        i0 += K
+    if not nonneg and i0 < nt:
+        for u in range(K):
+            if i0 + u < nt:
+                step(u, buf[u] if prefetch else ld(i0 + u + K - 1), tk[i0 + u])
+    return acc
+
+
+def emulate_k6(img, taps, ty, tx, cv=4):
+    """K6's blocks on one (H, W) frame -> (H, W) f32, and how many times
+    each output was written; `cv` columns a thread in the vertical pass
+    (CV in csrc/gauss.cu)."""
+    H, W = img.shape
+    nt, r = len(taps), len(taps) // 2
+    tpad = np.zeros((nt + 7) // 8 * 8 + 8, f32)
+    tpad[:nt] = taps
+    vec_in = W % 4 == 0
+    out = np.full((H, W), np.nan, f32)
+    writes = np.zeros((H, W), np.int32)
+    pitch = (k6.smem_bytes(nt, ty, tx) // 4 - len(tpad)) // ty
+    for y0 in range(0, H, ty):
+        for x0 in range(0, W, tx):
+            d = (x0 - r) % cv
+            xs = x0 - r - d
+            nw = (d + tx + 2 * r + 7 + cv - 1) // cv
+            assert cv * nw < pitch and pitch % 2 == 1
+            V = np.full((ty, pitch), np.nan, f32)
+            # vertical pass: item (group g, word q), 8 rows x cv columns
+            for g in range(ty // 8):
+                yb = y0 + 8 * g - r
+                last = yb + (nt + 7) // 8 * 8 + 8 - 2    # a run's last row
+                if yb >= 0 and last < H:
+                    mode = 0
+                elif H >= 2 and yb >= -(H - 1) and last <= 2 * (H - 1):
+                    mode = 1
+                else:
+                    mode = 2
+                words = []
+                for q in range(nw):
+                    x = xs + cv * q
+                    vec = vec_in and x >= 0 and x + cv - 1 < W
+                    words.append([x + c if vec else _reflect101_any(x + c, W)
+                                  for c in range(cv)])
+                cols = np.asarray(words)          # (nw, cv)
+
+                def ld(m, yb=yb, mode=mode, cols=cols):
+                    # the kernel's source_row: no reflection, one (without
+                    # a branch), or any number; edge words take the last
+                    y = yb + m
+                    if mode == 1:
+                        y = min(abs(y), 2 * (H - 1) - abs(y))
+                    elif mode == 2:
+                        y = _reflect101_any(y, H)
+                    assert 0 <= y < H
+                    return img[y][cols].astype(f32)
+
+                u8 = img.dtype == np.uint8
+                acc = corr_run(ld, tpad, nt, prefetch=u8, nonneg=u8)
+                for j in range(8):
+                    V[8 * g + j, :cv * nw] = acc[j].reshape(-1)
+            # horizontal pass: lane -> row lane % ty, slot (warp, lane // ty)
+            per_warp = 32 // ty
+            lanes = []
+            for warp in range(8):
+                for lane in range(32):
+                    for ch in range(warp * per_warp + lane // ty, tx // 8, 8 * per_warp):
+                        if x0 + 8 * ch >= W:
+                            break
+                        lanes.append((lane % ty, 8 * ch))
+            ly, lx0 = (np.asarray(v) for v in zip(*lanes))
+            acc = corr_run(lambda m: V[ly, d + lx0 + m], tpad, nt,
+                           nonneg=img.dtype == np.uint8)
+            for j in range(8):
+                y, x = y0 + ly, x0 + lx0 + j
+                keep = (y < H) & (x < W)
+                out[y[keep], x[keep]] = acc[j][keep]
+                np.add.at(writes, (y[keep], x[keep]), 1)
+    return out, writes
+
+
+K6_CASES = [
+    # (h, w, ntaps, uint8, tile or None for gauss.tile's)
+    (37, 53, 3, True, None), (40, 150, 9, True, (32, 64)),
+    (70, 131, 15, False, (16, 64)), (30, 45, 79, True, None),
+    (5, 300, 39, False, (32, 128)), (1, 7, 3, True, None),
+    (33, 200, 39, True, (32, 64)), (20, 260, 1, True, (32, 64)),
+    (9, 128, 17, False, (32, 64)), (50, 66, 7, True, (16, 64)),
+    (12, 9, 25, False, None), (64, 256, 33, True, (32, 128)),
+]
+
+
+@pytest.mark.parametrize("h,w,ntaps,u8,tile", K6_CASES)
+def test_k6_blocks_equal_plain(h, w, ntaps, u8, tile):
+    """Column spans that start left of the frame and end past it, words
+    half outside it, rows reflected more than once (frames within the
+    radius), 16-row blocks, tap counts below, at and past a chunk of 8:
+    every output written once and equal to the plain version to the bit."""
+    rng = np.random.default_rng(ntaps * 31 + w)
+    img = (rng.integers(0, 256, (h, w), dtype=np.uint8) if u8
+           else (rng.standard_normal((h, w)) * 40).astype(f32))
+    taps = gaussian_kernel(ntaps, (ntaps - 1) / 5) if ntaps > 1 else np.ones(1, f32)
+    ty, tx = tile or k6.tile(ntaps, w)
+    got, writes = emulate_k6(img, taps, ty, tx)
+    assert (writes == 1).all()
+    ref = core.gaussian_blur_reflect101(torch.as_tensor(img)[None], taps)[0].numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_k6_column_span_of_the_deep_levels():
+    """At the five-level 1080p pyramid's 39 and 79 taps a block spans 640
+    of the 1920 columns (three spans, two blocks an SM), so its vertical
+    pass recomputes at most 15 % more columns than it outputs (the halo
+    and the 7 columns a last chunk of zero taps reads)."""
+    for ntaps in (39, 79):
+        ty, tx = k6.tile(ntaps, 1920)
+        assert (ty, tx) == (32, 640)
+        assert 2 * k6.smem_bytes(ntaps, ty, tx) + 2 * 1024 <= 228 * 1024
+        r = ntaps // 2
+        span = 4 * ((3 + tx + 2 * r + 7 + 3) // 4)
+        assert span / tx <= 1.15
+
+
+def k4_plan(B, P, sms=132):
+    """oft_colorize's plan at two blocks an SM: (G, NG, slice, cap, vec)."""
+    quads = -(-P // 4)
+    NG = 2 if B >= 2 else 1
+    G = sms * 2 // NG
+    slc = -(-quads // G)
+    cap = min(slc, 112 * 1024 // 20)
+    return G, NG, slc, cap, P % 4 == 0
+
+
+def _hue_bytes(fx, fy):
+    rad = fast_atan2_deg(fy, fx) * colorize._RAD_PER_DEG
+    return torch.remainder(torch.floor(rad * colorize._DEG_PER_RAD), 256.0)
+
+
+def emulate_k4(flow, G, NG, slc, cap):
+    """K4's launch on (B, 2, H, W) f32 -> (B, 3, H, W) uint8, and how many
+    times each output byte was written."""
+    B, _, H, W = flow.shape
+    P = H * W
+    quads = -(-P // 4)
+    fl = torch.as_tensor(flow).reshape(B, 2, P)
+    out = np.zeros((B, 3, P), np.uint8)
+    writes = np.zeros((B, 3, P), np.int32)
+    eps = f32(2.220446049250313e-16)
+    for grp in range(NG):
+        for b in range(grp, B, NG):      # the group's frames, in order
+            fx, fy = fl[b, 0], fl[b, 1]
+            parts, cache = [], []
+            for k in range(G):           # 1. every block of the group
+                q0, q1 = k * slc, min(k * slc + slc, quads)
+                px = [np.arange(4 * q, min(4 * q + 4, P)) for q in range(q0, q1)]
+                mags = [magnitude(fx[i], fy[i]) for i in px]
+                mn = min((float(m.min()) for m in mags), default=np.inf)
+                mx = max((float(m.max()) for m in mags), default=-np.inf)
+                parts.append((f32(mn), f32(mx)))
+                cache.append([(i, m, _hue_bytes(fx[i], fy[i]))
+                              for i, m in zip(px[:cap], mags[:cap])])
+            # 3. (scale, shift) from the G pairs, then each block's map
+            mn = min(p[0] for p in parts)
+            mx = max(p[1] for p in parts)
+            rng = f32(mx - mn)
+            scale = f32(f32(255.0) / rng) if rng > eps else f32(0.0)
+            shift = f32(-mn) * scale
+            for k in range(G):
+                q0, q1 = k * slc, min(k * slc + slc, quads)
+                for li, q in enumerate(range(q0, q1)):
+                    if li < cap:
+                        i, m, hue = cache[k][li]
+                    else:   # past the cache: read again
+                        i = np.arange(4 * q, min(4 * q + 4, P))
+                        m, hue = magnitude(fx[i], fy[i]), _hue_bytes(fx[i], fy[i])
+                    value = torch.floor(m * float(scale) + float(shift)).clamp(0, 255)
+                    sat = torch.full((), 255.0)
+                    for c, plane in enumerate(hsv2bgr_planes(hue, sat, value)):
+                        out[b, c, i] = plane.numpy()
+                        writes[b, c, i] += 1
+    return out.reshape(B, 3, H, W), writes
+
+
+K4_CASES = [
+    # (B, h, w, plan or None for the card's (132 SMs, two blocks each))
+    (1, 5, 7, (4, 1, 3, 3)), (3, 6, 8, (3, 2, 4, 1)), (4, 9, 13, (5, 2, 6, 2)),
+    (2, 16, 16, None), (1, 1, 1, None), (3, 11, 7, (2, 2, 10, 4)),
+    (5, 4, 4, (1, 2, 4, 4)), (2, 7, 9, (16, 2, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("B,h,w,plan", K4_CASES)
+def test_k4_slices_equal_plain(B, h, w, plan):
+    """Frames whose H * W is not a multiple of 4 (the ragged last quad),
+    slices past the cache's capacity, more blocks than quads, one or two
+    groups and an odd batch; frame 0 holds no motion (its value plane is 0):
+    each byte written once and equal to the plain version."""
+    rng = np.random.default_rng(B * 100 + h * w)
+    flow = ((rng.random((B, 2, h, w)) - 0.5) * 12.0).astype(f32)
+    flow[0] = 0.0
+    G, NG, slc, cap = plan or k4_plan(B, h * w)[:4]
+    assert G * slc >= -(-h * w // 4)
+    got, writes = emulate_k4(flow, G, NG, slc, cap)
+    assert (writes == 1).all()
+    ref = colorize.flow_to_bgr_planar(torch.as_tensor(flow)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_k4_plan_keeps_a_1080p_frame_on_chip():
+    """At the visualizer's 1080p chunks the slice of a frame fits the cache
+    (the flow is read once), two groups take alternate frames; at B = 1 one
+    group of every block; at 4320x7680 the slice overflows the cache."""
+    G, NG, slc, cap, vec = k4_plan(16, 1080 * 1920)
+    assert (G, NG, slc) == (132, 2, 3928) and slc <= cap and vec
+    G, NG, slc, cap, vec = k4_plan(1, 1079 * 1917)
+    assert (G, NG) == (264, 1) and slc <= cap and not vec
+    G, NG, slc, cap, vec = k4_plan(2, 4320 * 7680)
+    assert slc > cap
