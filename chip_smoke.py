@@ -37,7 +37,19 @@ tile (winsize 63, K5a -> K5b) and a five-level pyramid (levels=5, K6 on
 L4 and L5) at 1080x1920, and bench.py's 8K row (4320x7680, B=1).  Each
 path is checked against the plain path on the card, the true shift and,
 where the file has it, the JAX package's golden numbers
-(`tests/data/torch_port_golden.json`), and both paths are timed.
+(`tests/data/torch_port_golden.json`), and both paths are timed.  Then
+the package's own tools: `selftest` (`utils/selftest.py:run_selftest`,
+every kernel against its plain version over the JAX self test's shape
+classes, K7 at the iterate's spills, the full pyramid on
+`vertical_jump_pair` at 1080p; it must be ok), `warmup_1080p` (the
+extractor's, the visualizer's and the flow's warmers at 1080p source
+frames: the chunk each launched at, its seconds and its peak device
+memory beside the card's total) and `cold_start` (the warmup CLI in
+three fresh processes: cold with an empty kernel cache, then packing it;
+warm on the same cache; restored from the pack into an empty cache:
+wall seconds and nvcc runs each, 0 required for the last two).
+Kernels build into `build/<hash>/` of the checkout unless
+OFT_COMPILE_CACHE names another directory.
 --profile adds `profile_1080p`, `profile_deep_1080p`,
 `profile_winsize63_1080p` and `profile_8k`: the device time per kernel
 and the busy share of the 1080p flow call under flags 0, 256 and 4, with
@@ -55,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1338,6 +1351,101 @@ def profile_phase(dev, power) -> None:
                  card=power)
 
 
+def selftest_phase(power) -> None:
+    """The package's own self test on the card (`utils/selftest.py`):
+    every kernel against its plain version over the JAX self test's shape
+    classes, K7 at the iterate's spills, and the full pyramid on
+    `vertical_jump_pair` at 1080p.  Every kernel must launch in it."""
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.utils.selftest import run_selftest
+
+    reset_launches()
+    t0 = time.perf_counter()
+    verdict = run_selftest()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    pyramid = next(c for c in verdict["cases"] if c["name"].startswith("pyramid/"))
+    failed = [c for c in verdict["cases"] if not c["ok"]]
+    emit("selftest", n_cases=verdict["n_cases"], n_failed=verdict["n_failed"],
+         seconds=seconds, max_abs_diff=verdict["max_abs_diff"], pyramid=pyramid,
+         launches=launches, failed=failed, card=power)
+    require(verdict["kernels"] and verdict["ok"],
+            f"selftest: {verdict['n_failed']} of {verdict['n_cases']} cases failed")
+    require(all(launches[k] > 0 for k in KERNEL_INFO),
+            f"selftest: a kernel was never launched: {launches}")
+
+
+def warmup_phase(dev, power) -> None:
+    """The warmers at 1080p source frames (`utils/warmup.py`): each
+    launches its production step once at the chunk `pair_chunk_for` picks
+    on this card, and reports its seconds and peak device memory."""
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.utils.warmup import (warmup_extractor, warmup_flow,
+                                                     warmup_visualizer)
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    chunk = pair_chunk_for(1080, 1920, device=dev)
+    runs = {}
+    for name, warm, kernels in [
+            ("extractor", warmup_extractor, ("K3", "K2", "K1")),
+            ("visualizer", warmup_visualizer, ("K3", "K2", "K1", "K4")),
+            ("flow", warmup_flow, ("K3", "K2", "K1"))]:
+        torch.cuda.empty_cache()
+        reset_launches()
+        info = warm(1080, 1920, device=dev)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        require(all(launches.get(k, 0) > 0 for k in kernels),
+                f"warmup {name}: launches {launches}")
+        require(info["peak_bytes"] < total, f"warmup {name}: peak past the card")
+        runs[name] = {**info, "peak_gb": info["peak_bytes"] / 1e9, "launches": launches}
+    torch.cuda.empty_cache()
+    require(runs["visualizer"]["chunk"] == chunk == runs["flow"]["chunk"],
+            f"warmup: chunks {runs} against pair_chunk_for {chunk}")
+    emit("warmup_1080p", pair_chunk_for_1080p=chunk, card_total_gb=total / 1e9,
+         card=power, **runs)
+
+
+def cold_start_phase(power) -> None:
+    """Three starts of the warmup CLI at 1920x1080, each a fresh process:
+    cold (an empty kernel cache; builds every kernel, then packs them),
+    warm (the same cache again) and restored (a fresh, empty cache that
+    the pack fills).  The warm and restored starts must run no nvcc."""
+    import shutil
+    import tempfile
+    from optical_flow_tpu_torch.kernels import _build
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cold_start_", dir=ROOT / "build"))
+    pack = tmp / "warm.tgz"
+    res = ["--res", "1920x1080"]
+    runs = {}
+    try:
+        for label, cache, args in [("cold", "a", [*res, "--pack", str(pack)]),
+                                   ("warm", "a", res),
+                                   ("restored", "b", ["--unpack", str(pack), *res])]:
+            env = {**os.environ, "OFT_COMPILE_CACHE": str(tmp / cache)}
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "optical_flow_tpu_torch.utils.warmup", *args],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            require(out.returncode == 0, f"cold_start {label}: {out.stderr[-2000:]}")
+            r = json.loads(out.stdout.strip().splitlines()[-1])
+            runs[label] = {"wall_s": wall, "nvcc_runs": r["nvcc_runs"],
+                           "build_s": r["build_s"],
+                           "extractor_s": r["warmed"][0]["extractor"]["seconds"],
+                           "visualizer_s": r["warmed"][0]["visualizer"]["seconds"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("cold_start", card=power, **runs)
+    require(runs["cold"]["nvcc_runs"] == len(_build.SOURCES),
+            f"cold_start: the cold start ran {runs['cold']['nvcc_runs']} nvcc")
+    require(runs["warm"]["nvcc_runs"] == 0 and runs["restored"]["nvcc_runs"] == 0,
+            f"cold_start: nvcc ran on a warm or restored start: {runs}")
+
+
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1351,6 +1459,8 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    # build into the checkout's build/ (gitignored) unless told otherwise
+    os.environ.setdefault("OFT_COMPILE_CACHE", str(ROOT / "build"))
     from optical_flow_tpu_torch.kernels import _build
     from optical_flow_tpu_torch.utils.config import (
         OPTFLOW_FARNEBACK_GAUSSIAN, OPTFLOW_USE_INITIAL_FLOW, FarnebackConfig)
@@ -1359,10 +1469,11 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     power = nvidia_smi_line()
-    build_s = _build.build()
+    report = _build.build()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=power,
-         kernel_build_s=build_s)
+         kernel_build_s=report.seconds, nvcc_runs=report.nvcc_runs,
+         kernel_dir=str(_build.build_dir()))
     golden = json.loads(GOLDEN.read_text())
     cfg = FarnebackConfig()
 
@@ -1406,6 +1517,11 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     e2e_phase("e2e_8k", *WIDE, cfg, dev, golden, power, stats, batch=1,
               shift=SHIFT_8K)
+    torch.cuda.empty_cache()
+    selftest_phase(power)
+    torch.cuda.empty_cache()
+    warmup_phase(dev, power)
+    cold_start_phase(power)
     if args.profile:
         torch.cuda.empty_cache()
         profile_phase(dev, power)

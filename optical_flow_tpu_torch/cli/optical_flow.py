@@ -8,8 +8,9 @@ and with `optical_flow_tpu.cli.optical_flow`:
 Same positional and flag names, same defaults, the same string-typed
 --force_run; `--device` (default `cuda`, the current card, which raises
 where there is none; `cpu` runs the plain PyTorch versions) is the
-port's.  The JAX CLI's persistent compile cache and debug-NaN switch
-have no counterpart here.  `--num_workers` and `--worker_index` shard the
+port's.  As for the JAX CLI, OFT_DEBUG_NANS=1 checks each chunk's flow
+for NaNs (`utils/validate.py`) and OFT_COMPILE_CACHE says where the
+kernels are built and found (`utils/compile_cache.py`).  `--num_workers` and `--worker_index` shard the
 corpus; without them, OFT_COORDINATOR_ADDRESS, OFT_NUM_PROCESSES and
 OFT_PROCESS_ID do, as for the JAX CLI (`parallel/corpus.py`).  A progress bar shows where `tqdm` is
 installed.
@@ -23,6 +24,7 @@ from optical_flow_tpu_torch.parallel.corpus import (maybe_init_distributed,
                                                     shard_videoids)
 from optical_flow_tpu_torch.pipeline.extractor import run_corpus
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
+from optical_flow_tpu_torch.utils.validate import maybe_enable_debug_nans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,6 +95,7 @@ def _progress_bar():
 
 
 def main(argv=None) -> None:
+    maybe_enable_debug_nans()
     args = build_parser().parse_args(argv)
     config = ExtractorConfig(
         frame_width=args.frame_width,

@@ -8,7 +8,10 @@
 (As in the reference, the first positional is named video_dir but is a
 video FILE path.)  It runs on the current CUDA card (`--device cuda`, the
 default; it raises where there is none) or, with `--device cpu`, runs the
-plain PyTorch versions on the CPU.
+plain PyTorch versions on the CPU.  As for the JAX CLI, OFT_DEBUG_NANS=1
+checks each chunk's flow for NaNs (`utils/validate.py`) and
+OFT_COMPILE_CACHE says where the kernels are built and found
+(`utils/compile_cache.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import argparse
 
 from optical_flow_tpu_torch.pipeline.visualizer import visualize_shot
 from optical_flow_tpu_torch.utils.config import VisualizerConfig
+from optical_flow_tpu_torch.utils.validate import maybe_enable_debug_nans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,6 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    maybe_enable_debug_nans()
     args = build_parser().parse_args(argv)
     visualize_shot(args.video_dir, args.images_path, args.shot_begin,
                    args.shot_end,

@@ -2,10 +2,15 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers), so
 nvcc builds it in seconds; `csrc/*.cuh` are headers they share.  The
-shared library goes to `build/optical_flow_tpu_torch/<hash>/lib<name>.so`
-at the repo root, where <hash> covers the sources, the headers and the
-flags: a changed source builds anew, an unchanged one is loaded as it
-is.  Nothing here runs at import time.
+shared library goes to `<cache>/<hash>/lib<name>.so`, where <cache> is
+`utils/compile_cache.py:kernel_cache_dir()` (OFT_COMPILE_CACHE, else
+~/.cache/optical_flow_tpu_torch/kernels; a private temporary directory
+for the process where OFT_COMPILE_CACHE=0) and <hash> covers the
+sources, the headers and the flags: a changed source builds anew, an
+unchanged one is loaded as it is.  Each library is written under a
+temporary name and renamed into place, so processes that build the same
+<hash> at once never load a partial file.  Nothing here runs at import
+time.
 
 `--fmad=false`: the plain versions run unfused elementwise ops, and FMA
 contraction would move the rint boundary of the displaced fetch and the
@@ -14,17 +19,22 @@ last bits of every stencil.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
+
+from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "optical_flow_tpu_torch"
 SOURCES = ("blur_solve", "colorize", "gauss", "gauss_resize", "polyexp",
            "update_blur", "update_blur_poly", "update_matrices")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,22 +52,43 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def build_dir() -> Path:
+@functools.lru_cache(maxsize=1)
+def _private_dir() -> Path:
+    """This process's own build directory, for OFT_COMPILE_CACHE=0;
+    removed at exit."""
+    path = tempfile.mkdtemp(prefix="optical_flow_tpu_torch_kernels_")
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return Path(path)
+
+
+def source_hash() -> str:
+    """16 hex digits over the nvcc flags and every source and header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     files = [CSRC / f"{name}.cu" for name in SOURCES] + sorted(CSRC.glob("*.cuh"))
     for path in files:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    """Where this tree's libraries are built and loaded from."""
+    return (kernel_cache_dir() or _private_dir()) / source_hash()
 
 
 def nvcc_command(name: str, out: Path) -> list:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
-def build(names=SOURCES) -> float:
+class BuildReport(NamedTuple):
+    seconds: float      # wall time of the call
+    nvcc_runs: int      # libraries compiled: 0 where all were built already
+
+
+def build(names=SOURCES) -> BuildReport:
     """Compile every library in `names` that is not built yet, in parallel.
-    Returns the seconds it took; raises with nvcc's output on failure."""
+    Returns the seconds it took and how many nvcc runs it made; raises
+    with nvcc's output on failure."""
     t0 = time.perf_counter()
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -79,7 +110,7 @@ def build(names=SOURCES) -> float:
             os.replace(tmp, lib)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    return time.perf_counter() - t0
+    return BuildReport(time.perf_counter() - t0, len(procs))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -165,7 +165,9 @@ def _flow(frames: torch.Tensor, config: FarnebackConfig, plain: bool,
     return _flow_pyramid(frames, build_plan(h, w, config), plain, chain, seed)
 
 
-def _bgr(flow: torch.Tensor, plain: bool) -> torch.Tensor:
+def flow_bgr(flow: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Planar flow (B, 2, H, W) -> planar BGR uint8 (B, 3, H, W): K4 on a
+    CUDA tensor, its plain version on the CPU or with `plain`."""
     return (colorize.flow_to_bgr_planar(flow) if plain
             else flow_to_bgr_planar(flow))
 
@@ -226,7 +228,7 @@ def calc_flow_bgr_batched(prev, nxt, config: FarnebackConfig = FarnebackConfig()
     (B, H, W) frames -> planar BGR uint8 (B, 3, H, W)
     (`visualize_optical_flow.py:38-55`)."""
     both = _pair_batch(prev, nxt, device)
-    return _bgr(_flow(both, config, plain, chain=False), plain)
+    return flow_bgr(_flow(both, config, plain, chain=False), plain)
 
 
 def calc_flow_bgr_chain_batched(frames,
@@ -235,4 +237,4 @@ def calc_flow_bgr_chain_batched(frames,
     """Chained-pair flow + colorization: (N, H, W) frames -> planar BGR
     uint8 (N-1, 3, H, W) for the pairs (i, i+1)."""
     frames = _chain_batch(frames, device)
-    return _bgr(_flow(frames, config, plain, chain=True), plain)
+    return flow_bgr(_flow(frames, config, plain, chain=True), plain)

@@ -3,6 +3,8 @@ from optical_flow_tpu_torch.ops.polar import cart_to_polar, normalize_minmax_u8_
 from optical_flow_tpu_torch.ops.resize import (
     resize_bilinear_f32,
     resize_area_f32,
+    resize_u8_cv,
+    resize_frame_u8,
     aspect_preserving_size,
 )
 from optical_flow_tpu_torch.ops.colorize import flow_to_bgr_u8
@@ -14,6 +16,8 @@ __all__ = [
     "normalize_minmax_u8_value",
     "resize_bilinear_f32",
     "resize_area_f32",
+    "resize_u8_cv",
+    "resize_frame_u8",
     "aspect_preserving_size",
     "flow_to_bgr_u8",
 ]

@@ -1,9 +1,11 @@
-"""Float resizes with cv2.resize semantics.
+"""Resizes with cv2.resize semantics.
 
 Port of `optical_flow_tpu.ops.resize` (`_coeffs_f32`,
-`resize_bilinear_f32`, `_area_weights`, `resize_area_f32`, and the host
-pieces of the extractor's frame resize, `_coeffs_u8` and
-`aspect_preserving_size`, which `ops/host.py` runs).  Bilinear:
+`resize_bilinear_f32`, `_coeffs_u8`, `resize_u8_cv`,
+`aspect_preserving_size`, `resize_frame_u8`, `_area_weights`,
+`resize_area_f32`).  `ops/host.py` runs the extractor's frame resize on
+the host with the same `_coeffs_u8`; `resize_u8_cv` is its twin on a
+tensor's device, used by no pipeline, as in the JAX package.  Bilinear:
 half-pixel centres and edge clamp; the pyramid uses it for the x2 flow
 upsample between levels, and it is the second half of the plain version
 of the `gauss_resize` kernel.  INTER_AREA: the seeded entry's downsample
@@ -81,6 +83,53 @@ def resize_bilinear_f32(src: torch.Tensor, dw: int, dh: int) -> torch.Tensor:
     ty = ty[:, None]
     return (row.index_select(-2, sy0) * (1.0 - ty)
             + row.index_select(-2, sy1) * ty)
+
+
+def resize_u8_cv(src: torch.Tensor, dw: int, dh: int,
+                 channels_last: bool | None = None) -> torch.Tensor:
+    """cv2.resize uint8 INTER_LINEAR fixed-point path, bit-exact
+    (downscale), on the tensor's device.
+
+    src: (H, W) uint8, or (H, W, C) uint8 when channels_last=True (the
+    default for 3-D input); otherwise the trailing two axes are (H, W) and
+    any leading axes are a batch.  The horizontal pass in int32 with the
+    Q11 weights, `>> 4`, the vertical pass `>> 16` per term, then
+    `(acc + 2) >> 2`, as the JAX version computes it."""
+    if channels_last is None:
+        channels_last = src.dim() == 3
+    if channels_last and src.dim() == 3:
+        h_ax, w_ax = 0, 1
+    else:
+        h_ax, w_ax = src.dim() - 2, src.dim() - 1
+    sh, sw = src.shape[h_ax], src.shape[w_ax]
+    if (dw, dh) == (sw, sh):
+        return src
+    dev = src.device
+    sx0, sx1, ax0, ax1 = (torch.as_tensor(a, device=dev) for a in _coeffs_u8(sw, dw))
+    sy0, sy1, by0, by1 = (torch.as_tensor(a, device=dev) for a in _coeffs_u8(sh, dh))
+    s = src.to(torch.int32)
+    shape_w = [1] * s.dim()
+    shape_w[w_ax] = dw
+    row = (s.index_select(w_ax, sx0.long()) * ax0.reshape(shape_w)
+           + s.index_select(w_ax, sx1.long()) * ax1.reshape(shape_w))
+    r0 = row.index_select(h_ax, sy0.long()) >> 4
+    r1 = row.index_select(h_ax, sy1.long()) >> 4
+    shape_h = [1] * s.dim()
+    shape_h[h_ax] = dh
+    acc = ((by0.reshape(shape_h) * r0) >> 16) + ((by1.reshape(shape_h) * r1) >> 16)
+    return ((acc + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+def resize_frame_u8(frame: torch.Tensor, frame_width: int) -> torch.Tensor:
+    """The reference's `resize_frame` (`optical_flow.py:25-31`): an
+    aspect-preserving uint8 resize of an (H, W[, C]) frame to the given
+    width, on the frame's device."""
+    if frame.dim() == 3:
+        sh, sw = frame.shape[0], frame.shape[1]
+    else:
+        sh, sw = frame.shape[-2], frame.shape[-1]
+    dw, dh = aspect_preserving_size(sh, sw, frame_width)
+    return resize_u8_cv(frame, dw, dh)
 
 
 @functools.lru_cache(maxsize=128)

@@ -48,6 +48,7 @@ from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
                                                       pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (EXTRACTOR, ExtractorConfig,
                                                  FarnebackConfig)
+from optical_flow_tpu_torch.utils import validate
 from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.logging import get_logger
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -83,18 +84,25 @@ def magnitude_sums(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
     `calculate_optical_flow` (`optical_flow.py:49-66`), batched.  The
     magnitude is cart_to_polar's; its angle, which the sum does not read,
     is not computed.  `device` and `plain` as in calc_flow_batched."""
+    return _flow_and_sums(prev, nxt, config, device=device, plain=plain)[1]
+
+
+def _flow_and_sums(prev, nxt, config: FarnebackConfig, *, device, plain: bool):
     flow = calc_flow_batched(prev, nxt, config, device=device, plain=plain)
-    return magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
+    return flow, magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
 
 
 def _magnitude_sums(prev_batch: torch.Tensor, next_batch: torch.Tensor,
-                    config: ExtractorConfig, *, device,
-                    plain: bool = False) -> torch.Tensor:
+                    config: ExtractorConfig, *, device, plain: bool = False,
+                    nan_check: bool = False):
     """The one-device branch of the JAX package's `_magnitude_sums`
-    (`extractor.py:111-114`): a device tensor (B,), so that chunks
-    pipeline without a host sync each."""
-    return magnitude_sums(prev_batch, next_batch, config.farneback,
-                          device=device, plain=plain)
+    (`extractor.py:111-114`): (sums, finite), sums a device tensor (B,),
+    so that chunks pipeline without a host sync each, and finite, with
+    nan_check, a device bool: whether every component of the chunk's flow
+    is finite (`utils/validate.py:DEBUG_NANS`); None without."""
+    flow, sums = _flow_and_sums(prev_batch, next_batch, config.farneback,
+                                device=device, plain=plain)
+    return sums, (torch.isfinite(flow).all() if nan_check else None)
 
 
 def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
@@ -116,7 +124,10 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     below the earliest start still needed are dropped.  device: by
     default the current card; "cpu" runs the plain versions.  `plain` as
     in calc_flow_batched.  With `validate_sample` (a list), the first
-    chunk's first pair is appended to it as host arrays."""
+    chunk's first pair is appended to it as host arrays.  Under
+    OFT_DEBUG_NANS=1 (`utils/validate.py`) each chunk's flow is checked
+    on the device and read with its sums; a non-finite chunk raises
+    FloatingPointError."""
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
     results = {}
@@ -127,7 +138,11 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     chunk: List[Window] = []
 
     def drain_one():
-        chk, sums = inflight.pop(0)
+        chk, sums, finite = inflight.pop(0)
+        if finite is not None and not bool(finite):
+            raise FloatingPointError(
+                f"non-finite flow in the chunk from frame {chk[0][1][0]} "
+                "(OFT_DEBUG_NANS=1)")
         for (idx, (s, e)), v in zip(chk, sums.cpu().tolist()):
             results[idx] = (s, e, v)
             if on_result is not None:
@@ -140,9 +155,10 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
         with metrics.stage("flow"):
             prev = torch.stack([live[w[0]] for _, w in chunk])
             nxt = torch.stack([live[w[1]] for _, w in chunk])
-            sums = _magnitude_sums(prev, nxt, config, device=device, plain=plain)
+            sums, finite = _magnitude_sums(prev, nxt, config, device=device,
+                                           plain=plain, nan_check=validate.DEBUG_NANS)
         metrics.add("frame_pairs", len(chunk))
-        inflight.append((chunk, sums))
+        inflight.append((chunk, sums, finite))
         # two chunks in flight; older results are complete by now, so
         # draining them checkpoints without a stall
         while len(inflight) > 2:
@@ -240,10 +256,9 @@ def extract_video(v_path: str, config: ExtractorConfig,
 
     aggregated, timestamps = aggregate(mags_by_idx, tot_frames, fps, step)
     if validate_sample:
-        from optical_flow_tpu_torch.utils.validate import (log_validation,
-                                                           sampled_epe)
-        epe = sampled_epe(*validate_sample[0], config.farneback, device=device)
-        log_validation(epe, f"extract:{os.path.basename(v_path)}")
+        epe = validate.sampled_epe(*validate_sample[0], config.farneback,
+                                   device=device)
+        validate.log_validation(epe, f"extract:{os.path.basename(v_path)}")
         if epe is not None:
             metrics.counters["validate_mean_epe"] = epe
     LAST_RUN_COUNTERS.clear()

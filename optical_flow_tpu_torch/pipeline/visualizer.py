@@ -34,13 +34,14 @@ import torch
 
 from optical_flow_tpu_torch.io.jpeg import write_jpeg_bgr
 from optical_flow_tpu_torch.io.video import VideoReader
-from optical_flow_tpu_torch.models.farneback.flow import \
-    calc_flow_bgr_chain_batched
+from optical_flow_tpu_torch.models.farneback.flow import (
+    calc_flow_chain_batched, flow_bgr)
 from optical_flow_tpu_torch.ops.host import bgr2gray_host
 from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
                                                       pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (FarnebackConfig,
                                                  VisualizerConfig)
+from optical_flow_tpu_torch.utils import validate
 from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
@@ -69,7 +70,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     frames: (pos, gray uint8 (H, W)) in order.  For every consecutive pair
     (i-1, i), calls write(pos_i, planar BGR uint8 (3, H, W) numpy) in
     order.  Pairs go to the device `chunk_size` at a time as one chain
-    (`calc_flow_bgr_chain_batched`), each chunk restacking the previous
+    (`calc_flow_chain_batched`, then K4), each chunk restacking the previous
     chunk's last frame; a chunk is downloaded once the next one is
     dispatched.  device: where the flow runs, by default the current card
     (raises without one; "cpu" runs the plain versions).  `plain` as in
@@ -82,9 +83,13 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
 
     def drain_one():
         nonlocal written
-        dpend, bgr, ready = inflight.pop(0)
+        dpend, bgr, ready, finite = inflight.pop(0)
         with metrics.stage("download"):
             host = _download(bgr, ready, copy_stream)
+        if finite is not None and not bool(finite):
+            raise FloatingPointError(
+                f"non-finite flow in the chunk from frame {dpend[0] - 1} "
+                f"(position {stamps[dpend[0] - 1]}; OFT_DEBUG_NANS=1)")
         with metrics.stage("encode"):
             for j, i in enumerate(dpend):
                 write(stamps[i], host[j])
@@ -93,7 +98,9 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     def flush(pend):
         with metrics.stage("flow"):
             chain = torch.stack([gray[pend[0] - 1]] + [gray[i] for i in pend])
-            bgr = calc_flow_bgr_chain_batched(chain, config, plain=plain)
+            flow = calc_flow_chain_batched(chain, config, plain=plain).movedim(-1, 1)
+            finite = torch.isfinite(flow).all() if validate.DEBUG_NANS else None
+            bgr = flow_bgr(flow, plain)
             ready = None
             if copy_stream is not None:
                 ready = torch.cuda.Event()
@@ -101,7 +108,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
         metrics.add("frame_pairs", len(pend))
         for i in pend:
             gray[i - 1] = None     # pairs are consecutive: frame i-1 is done
-        inflight.append((list(pend), bgr, ready))
+        inflight.append((list(pend), bgr, ready, finite))
         if len(inflight) > 1:
             drain_one()
 
@@ -197,11 +204,9 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
     finally:
         pool.shutdown()
     if len(validate_sample) == 2:
-        from optical_flow_tpu_torch.utils.validate import (log_validation,
-                                                           sampled_epe)
-        epe = sampled_epe(validate_sample[0], validate_sample[1],
-                          config.farneback, device=device)
-        log_validation(epe, f"visualize:{os.path.basename(v_path)}")
+        epe = validate.sampled_epe(validate_sample[0], validate_sample[1],
+                                   config.farneback, device=device)
+        validate.log_validation(epe, f"visualize:{os.path.basename(v_path)}")
         if epe is not None:
             metrics.counters["validate_mean_epe"] = epe
     metrics.log_summary()

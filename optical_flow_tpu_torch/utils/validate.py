@@ -1,18 +1,24 @@
-"""Validation mode, the `--validate` path of the visualizer CLI: a port of
-`optical_flow_tpu.utils.validate` (`sampled_epe`, `log_validation`).
+"""Validation mode, the `--validate` path of both CLIs, and the NaN
+check: a port of `optical_flow_tpu.utils.validate`.
 
   * `sampled_epe(prev, next, cfg)`: mean endpoint error of the port's flow
     against `cv2.calcOpticalFlowFarneback` on one grey frame pair; None
     (logged) when cv2 is not importable, so hosts without OpenCV still run.
   * `log_validation(...)`: logs the EPE and warns above the 0.5-px gate
     (BASELINE.json accuracy target).
-
-The JAX module's third function, `maybe_enable_debug_nans`, switches on
-`jax.debug_nans`; it has no counterpart here.
+  * `maybe_enable_debug_nans()`: with OFT_DEBUG_NANS=1, sets `DEBUG_NANS`,
+    which makes the extractor's and the visualizer's device loops check
+    each chunk's flow with `torch.isfinite(flow).all()` on the device and
+    raise FloatingPointError for a chunk with a NaN or an infinity.  The
+    flag is read on the host when the chunk's results come back, with the
+    sync the loop makes anyway.  The JAX package switches on
+    `jax.debug_nans` there; both CLIs call it first, as the JAX CLIs do.
+    Off (the default), no check is queued and nothing is read.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -25,6 +31,20 @@ logger = get_logger("optical_flow_tpu_torch.validate")
 
 # north-star accuracy gate (BASELINE.json: mean EPE vs cv2 <= 0.5 px)
 EPE_GATE = 0.5
+
+# Whether the device loops check each chunk's flow; set by
+# maybe_enable_debug_nans().
+DEBUG_NANS = False
+
+
+def maybe_enable_debug_nans() -> bool:
+    """Turn on the per-chunk flow check when OFT_DEBUG_NANS=1.  Returns
+    whether it is on."""
+    global DEBUG_NANS
+    if os.environ.get("OFT_DEBUG_NANS") == "1":
+        DEBUG_NANS = True
+        logger.info("flow NaN check enabled (OFT_DEBUG_NANS=1)")
+    return DEBUG_NANS
 
 
 def sampled_epe(prev_gray: np.ndarray, next_gray: np.ndarray,

@@ -845,3 +845,66 @@ def test_blur_solve_row_blocks(dev, B, h, w, rows, gaussian):
     ref = core.blur_solve(M, 63, gaussian)
     torch.cuda.synchronize()
     assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def test_selftest_on_the_card(dev):
+    """The package's self test: every case ok, every kernel's route run
+    (not plain against plain), each kernel equal to its reference."""
+    from optical_flow_tpu_torch.utils.selftest import run_selftest
+    kernels.reset_launches()
+    verdict = run_selftest()
+    failed = [c for c in verdict["cases"] if not c["ok"]]
+    assert verdict["ok"] and not failed, failed
+    assert verdict["kernels"] is True and verdict["device"] == "cuda"
+    assert verdict["n_cases"] == 48
+    assert all(kernels.LAUNCHES[k] > 0 for k in kernels.LAUNCHES), kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("channels_last", [None, False])
+@pytest.mark.parametrize("shape,dw,dh", [((1080, 1920), 129, 72), ((37, 53, 3), 20, 11),
+                                         ((2, 97, 131), 64, 48), ((40, 64), 64, 40)])
+def test_resize_u8_cv_on_the_card_equals_the_cpu(dev, shape, dw, dh, channels_last):
+    from optical_flow_tpu_torch.ops.resize import resize_u8_cv
+    src = torch.as_tensor(np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8))
+    got = resize_u8_cv(src.to(dev), dw, dh, channels_last)
+    assert got.device == dev
+    assert torch.equal(got.cpu(), resize_u8_cv(src, dw, dh, channels_last))
+
+
+def test_nan_check_fires_on_the_card(dev, monkeypatch):
+    """With the NaN check on, a chunk whose flow holds a NaN raises in
+    the extractor's and the visualizer's device loops on the card."""
+    from optical_flow_tpu_torch.pipeline import extractor, visualizer
+    from optical_flow_tpu_torch.utils import validate
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    monkeypatch.setattr(validate, "DEBUG_NANS", True)
+    frames = _frames(4, 40, 64)
+    seq = list(enumerate(frames))
+    got = extractor.extract_frames(seq, [(0, (0, 1)), (1, (2, 3))], ExtractorConfig(),
+                                   chunk_size=1, device=dev)
+    assert sorted(got) == [0, 1]
+
+    def poisoned(entry):
+        def run(*a, **k):
+            flow = entry(*a, **k).clone()
+            flow[-1, 3, 5, 1] = float("nan")
+            return flow
+        return run
+
+    monkeypatch.setattr(extractor, "calc_flow_batched", poisoned(extractor.calc_flow_batched))
+    with pytest.raises(FloatingPointError, match="from frame 0"):
+        extractor.extract_frames(seq, [(0, (0, 1)), (1, (2, 3))], ExtractorConfig(),
+                                 chunk_size=2, device=dev)
+    monkeypatch.setattr(visualizer, "calc_flow_chain_batched",
+                        poisoned(visualizer.calc_flow_chain_batched))
+    with pytest.raises(FloatingPointError, match="from frame 0"):
+        visualizer.visualize_frames(seq, lambda pos, bgr: None, chunk_size=3, device=dev)
+
+
+def test_build_runs_no_nvcc_a_second_time(dev):
+    from optical_flow_tpu_torch.kernels import _build
+    _build.build()
+    again = _build.build()
+    assert again.nvcc_runs == 0
+    assert all((_build.build_dir() / f"lib{n}.so").is_file() for n in _build.SOURCES)

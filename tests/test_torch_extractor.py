@@ -308,10 +308,13 @@ def test_robust_skips_a_bad_video_and_fail_fast_raises(tmp_path):
 
 
 def test_vfr_video_is_always_skipped(tmp_path):
-    from optical_flow_tpu.oracle.mp4edit import patch_vfr
+    from optical_flow_tpu_torch.oracle.mp4edit import patch_vfr
+    from optical_flow_tpu_torch.oracle.synthetic import write_synthetic_video as port_writer
 
     _video(tmp_path, "good", n_frames=16)
-    base = _video(tmp_path / "base", "b", n_frames=16)
+    os.makedirs(tmp_path / "base")
+    base = str(tmp_path / "base" / "b.mp4")
+    port_writer(base, n_frames=16, h=96, w=128, fps=25.0, seed=3)
     os.makedirs(tmp_path / "vfr" / "media")
     patch_vfr(base, str(tmp_path / "vfr" / "media" / "vfr.mp4"))
     failures = extractor.run_corpus(str(tmp_path), ["vfr", "good"], ExtractorConfig(),

@@ -2,9 +2,9 @@
 card: importing every port module (and chip_smoke.py as a module) pulls
 in neither JAX nor the JAX package and initialises no CUDA context; the
 wrappers, the flow and BGR entries, the visualizer's and the extractor's
-device loops, the corpus loop and both CLIs launch nothing for CPU
-tensors or device="cpu"; every entry raises without a card unless asked
-for the CPU; the kernel build command targets sm_90a without FMA
+device loops, the corpus loop, both CLIs, the self test and the warmers
+launch nothing for CPU tensors or device="cpu"; every entry raises
+without a card unless asked for the CPU; the kernel build command targets sm_90a without FMA
 contraction."""
 
 import functools
@@ -73,6 +73,11 @@ _PROBE = textwrap.dedent("""
     calc_flow_bgr_chain_batched(img)
     visualize_frames([(0.0, img[0]), (1.0, img[1])], lambda pos, bgr: None,
                      chunk_size=1, device="cpu")
+    from optical_flow_tpu_torch.utils.selftest import run_selftest
+    from optical_flow_tpu_torch.utils.warmup import warmup_extractor, warmup_visualizer
+    assert run_selftest(device="cpu", quick=True)["ok"]
+    warmup_extractor(24, 32, ExtractorConfig(frame_width=32), device="cpu")
+    warmup_visualizer(24, 32, device="cpu")
     print(json.dumps({
         "modules": mods,
         "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -155,13 +160,14 @@ def test_no_jax_import_in_port_sources():
 
 def test_build_command_targets_sm90a_without_fma():
     from optical_flow_tpu_torch.kernels import _build
+    from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
     for name in _build.SOURCES:
         cmd = _build.nvcc_command(name, Path("/nonexistent/lib.so"))
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert "--fmad=false" in cmd
         assert "-shared" in cmd and cmd[-1].endswith(f"csrc/{name}.cu")
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert _build.build_dir().parent == _build.BUILD_ROOT
+    assert _build.build_dir().parent == kernel_cache_dir()
 
 
 def test_chip_smoke_refuses_without_a_card():
@@ -180,9 +186,13 @@ _ENTRIES = textwrap.dedent("""
     from optical_flow_tpu_torch.models.farneback import flow
     from optical_flow_tpu_torch.pipeline import extractor, visualizer
     from optical_flow_tpu_torch.cli import optical_flow, visualize_optical_flow
-    from optical_flow_tpu_torch.utils import validate
+    from optical_flow_tpu_torch.utils import selftest, validate, warmup
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
     calls = {
+        "run_selftest": lambda: selftest.run_selftest(quick=True),
+        "warmup_flow": lambda: warmup.warmup_flow(40, 64),
+        "warmup_extractor": lambda: warmup.warmup_extractor(40, 64),
+        "warmup_visualizer": lambda: warmup.warmup_visualizer(40, 64),
         "calc_flow": lambda: flow.calc_flow(img[0], img[1]),
         "calc_flow_batched": lambda: flow.calc_flow_batched(img[:1], img[1:]),
         "calc_flow_chain_batched": lambda: flow.calc_flow_chain_batched(img),
@@ -230,7 +240,8 @@ def _entries_without_a_card():
     "calc_flow_bgr_batched", "calc_flow_bgr_chain_batched", "magnitude_sums",
     "sampled_epe", "extract_frames", "extract_video", "run_corpus",
     "visualize_frames", "visualize_shot", "optical_flow_cli",
-    "visualize_optical_flow_cli"])
+    "visualize_optical_flow_cli", "run_selftest", "warmup_flow", "warmup_extractor",
+    "warmup_visualizer"])
 def test_entry_raises_without_a_card(entry):
     """Host input with no device named goes to the current card; with no
     card visible the entry raises RuntimeError (before any video is

@@ -64,6 +64,7 @@ EXPORTS = {
     "ops": {"bgr2gray_u8": "ops.color", "hsv2bgr_u8": "ops.color",
             "cart_to_polar": "ops.polar", "normalize_minmax_u8_value": "ops.polar",
             "resize_bilinear_f32": "ops.resize", "resize_area_f32": "ops.resize",
+            "resize_u8_cv": "ops.resize", "resize_frame_u8": "ops.resize",
             "aspect_preserving_size": "ops.resize", "flow_to_bgr_u8": "ops.colorize"},
     "pipeline": {"extract_video": "pipeline.extractor",
                  "scale_magnitudes": "pipeline.extractor",
@@ -72,8 +73,9 @@ EXPORTS = {
     "parallel": {"shard_videoids": "parallel.corpus"},
     "utils": {"FarnebackConfig": "utils.config", "ExtractorConfig": "utils.config",
               "get_logger": "utils.logging"},
-    "oracle": {"smooth_texture_pair": "oracle.synthetic",
-               "motion_boundary_pair": "oracle.synthetic"},
+    "oracle": {n: "oracle.synthetic" for n in (
+        "smooth_texture_pair", "motion_boundary_pair", "quadratic_pair",
+        "vertical_jump_pair", "write_synthetic_video")},
     "io": {"VideoReader": "io.video", "write_jpeg_bgr": "io.jpeg",
            "write_mag_to_csv": "io.sidecar", "DoneSentinel": "io.sidecar"},
 }

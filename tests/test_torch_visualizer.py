@@ -132,13 +132,13 @@ def test_visualize_frames_keeps_one_chunk_in_flight(monkeypatch):
     """A chunk is handed to the writer only after the next chunk has been
     dispatched (`pipeline/visualizer.py:143-145` of the JAX package)."""
     events = []
-    real = visualizer.calc_flow_bgr_chain_batched
+    real = visualizer.calc_flow_chain_batched
 
     def dispatch(frames, *args, **kw):
         events.append(("dispatch", frames.shape[0] - 1))
         return real(frames, *args, **kw)
 
-    monkeypatch.setattr(visualizer, "calc_flow_bgr_chain_batched", dispatch)
+    monkeypatch.setattr(visualizer, "calc_flow_chain_batched", dispatch)
     visualizer.visualize_frames(_gray_sequence(8), lambda pos, bgr: events.append(("write", pos)),
                                 chunk_size=3, device="cpu")
     writes = [e[1] for e in events if e[0] == "write"]
