@@ -38,6 +38,14 @@ L4 and L5) at 1080x1920, and bench.py's 8K row (4320x7680, B=1).  Each
 path is checked against the plain path on the card, the true shift and,
 where the file has it, the JAX package's golden numbers
 (`tests/data/torch_port_golden.json`), and both paths are timed.  Then
+the mesh (`parallel/`), on meshes whose device list repeats the one card:
+`mesh_dp_1080p` (a 2x1 mesh, 17 pairs of an 18-frame chain at 1080x1920:
+`sharded_flow_step`, the extractor's mesh branch, `sharded_bgr_chain_step`
+over `chain_shards` and the visualizer's loop through the mesh, each equal
+to the one-device entry to the bit) and `mesh_sp_8k` (a 1x2 mesh, the 8K
+pair through the halo stages, K6, K2, K5a and K5b, held to the one-device
+flow by the flow gate and to the true flow; and the cross-seam update,
+fetches past the 32-row halo, against K5a at atol 1e-4).  Then
 the package's own tools: `selftest` (`utils/selftest.py:run_selftest`,
 every kernel against its plain version over the JAX self test's shape
 classes, K7 at the iterate's spills, the full pyramid on
@@ -1164,6 +1172,168 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
          download_ms=download_s * 1e3, download_mb=out.numel() / 1e6, card=power)
 
 
+def rolled_chain(n: int, h: int, w: int) -> np.ndarray:
+    """n uint8 frames of the texture rolled (1, 2) px a frame, each with
+    0/1 noise from np.random.default_rng(3) (tests/test_parallel.py's
+    chain at another size)."""
+    from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
+    base = smooth_texture_pair(h, w, (1, 2), seed=3)[0].astype(np.int16)
+    rng = np.random.default_rng(3)
+    return np.stack([np.clip(np.roll(base, (i, 2 * i), (0, 1))
+                             + rng.integers(0, 2, (h, w)), 0, 255)
+                     for i in range(n)]).astype(np.uint8)
+
+
+def mesh_dp_phase(dev, power) -> None:
+    """The data axis (`parallel/mesh.py`) on the one card: a 2x1 mesh whose
+    device list repeats the card, at 1080x1920, the default config.  An
+    18-frame chain gives 17 pairs (not a multiple of 2: the extractor's
+    branch pads to 18).  `sharded_flow_step`, the extractor's branch
+    (`_magnitude_sums` with the mesh, which runs `sharded_extract_step`'s
+    shards), `sharded_bgr_chain_step` over `chain_shards(frames, 2)` and
+    the visualizer's loop through the mesh must each equal the one-device
+    entry to the bit.  Also the sums of the two shards summed apart (the
+    JAX package's per-shard reduction) against the one-device sums: the
+    reason the branch reduces the gathered magnitudes as one batch."""
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.models.farneback.flow import (
+        calc_flow_batched, calc_flow_bgr_chain_batched)
+    from optical_flow_tpu_torch.parallel import (chain_shards, make_mesh,
+                                                 sharded_bgr_chain_step, sharded_flow_step)
+    from optical_flow_tpu_torch.pipeline import visualizer
+    from optical_flow_tpu_torch.pipeline.extractor import _magnitude_sums, magnitude_sums
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    name, h, w, n_frames = "mesh_dp_1080p", 1080, 1920, 18
+    mesh = make_mesh(2, 1, devices=[dev, dev])
+    host = rolled_chain(n_frames, h, w)
+    chain = torch.as_tensor(host).to(dev)
+    prev, nxt = chain[:-1], chain[1:]
+    cfg = ExtractorConfig()
+
+    def sharded():
+        return (sharded_flow_step(mesh, prev, nxt),
+                _magnitude_sums(prev, nxt, cfg, device=dev, mesh=mesh)[0],
+                sharded_bgr_chain_step(mesh, chain_shards(chain, 2))[:n_frames - 1])
+
+    reset_launches()
+    flow, sums, bgr = sharded()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for kid in ("K1", "K2", "K3", "K4"):
+        require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
+    wall_s = median_s(sharded, warmup=1, timed=3)
+    one_flow = calc_flow_batched(prev, nxt)
+    one_sums = magnitude_sums(prev, nxt)
+    one_bgr = calc_flow_bgr_chain_batched(chain)
+    require(torch.equal(flow, one_flow), f"{name}: sharded flow != calc_flow_batched: "
+            f"max diff {float((flow - one_flow).abs().max())}")
+    require(torch.equal(sums, one_sums), f"{name}: branch sums != magnitude_sums: "
+            f"max diff {float((sums - one_sums).abs().max())}")
+    require(torch.equal(bgr, one_bgr), f"{name}: sharded BGR chain != "
+            f"calc_flow_bgr_chain_batched on {int((bgr != one_bgr).sum())} bytes")
+    apart = torch.cat([magnitude_sums(prev[:9], nxt[:9]), magnitude_sums(prev[9:], nxt[9:])])
+
+    def loop():
+        out = []
+        visualizer.visualize_frames(list(enumerate(host)), lambda pos, b: out.append(b),
+                                    chunk_size=n_frames - 1, device=dev)
+        return np.stack(out)
+
+    solo = loop()
+    dp_mesh = visualizer._dp_mesh
+    visualizer._dp_mesh = lambda device=None: mesh
+    try:
+        meshed = loop()
+    finally:
+        visualizer._dp_mesh = dp_mesh
+    require(np.array_equal(meshed, solo), f"{name}: the visualizer's loop through the "
+            f"mesh differs on {int((meshed != solo).sum())} bytes")
+    require(np.array_equal(solo, one_bgr.cpu().numpy()),
+            f"{name}: the visualizer's loop != calc_flow_bgr_chain_batched")
+    emit(name, h=h, w=w, pairs=n_frames - 1, mesh=list(mesh.devices.shape),
+         devices=[str(d) for d in mesh.devices.flat], launches=launches,
+         flow_equal=True, sums_equal=True, bgr_chain_equal=True,
+         visualizer_equal=True,
+         per_shard_sums_max_abs_diff=float((apart - one_sums).abs().max()),
+         per_shard_sums_equal=bool(torch.equal(apart, one_sums)),
+         wall_s=wall_s, card=power)
+
+
+def mesh_sp_phase(dev, power) -> None:
+    """The spatial axis (`parallel/halo.py`) on the one card: a 1x2 mesh
+    whose device list repeats the card, bench.py's 8K pair (4320x7680,
+    B=1, shift (3, 5)).  `sharded_flow_step` runs every stage per halo
+    block (K6, K2, K5a, K5b; no K1, K3, K4 or K7) and is held to the
+    one-device `calc_flow_batched` by the flow gate and to the true flow
+    by the interior EPE.  Then the cross-seam case of
+    `HaloKernels.update_matrices_stats` at the same size: a random +-6 px
+    flow plus a band of dy = 45 px rows just above the seam, whose fetches
+    land past the 32-row halo (tests/test_halo.py:92-105 at full size),
+    against the one-device K5a."""
+    import torch
+    from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
+    from optical_flow_tpu_torch.kernels.polyexp import poly_exp
+    from optical_flow_tpu_torch.kernels.update_gather import update_matrices
+    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.parallel import HaloKernels, make_mesh, sharded_flow_step
+    from optical_flow_tpu_torch.parallel.halo import Blocks
+
+    name, (h, w) = "mesh_sp_8k", WIDE
+    mesh = make_mesh(1, 2, devices=[dev, dev])
+    prev, nxt = frames(h, w, dev, batch=1, shift=SHIFT_8K)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = sharded_flow_step(mesh, prev, nxt)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for kid in ("K6", "K2", "K5a", "K5b"):
+        require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
+    require(all(launches[k] == 0 for k in ("K1", "K3", "K4", "K7")),
+            f"{name}: a one-device kernel ran under sp: {launches}")
+    ref = calc_flow_batched(prev, nxt)
+    torch.cuda.synchronize()
+    require(tuple(flow.shape) == (1, h, w, 2) and bool(torch.isfinite(flow).all()),
+            f"{name}: flow {tuple(flow.shape)}, finite {bool(torch.isfinite(flow).all())}")
+    d = (flow - ref).abs()
+    share = float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean())
+    mean_d = float(d.mean())
+    require(share >= 0.999, f"{name}: only {share:.6f} of components match one device")
+    require(mean_d <= 1e-3, f"{name}: mean |sp - one device| {mean_d} > 1e-3 px")
+    truth = torch.tensor((-float(SHIFT_8K[1]), -float(SHIFT_8K[0])), device=dev)
+    epe = float((flow[:, CROP:h - CROP, CROP:w - CROP] - truth).norm(dim=-1).mean())
+    require(epe <= EPE_GATE, f"{name}: interior EPE {epe} > {EPE_GATE} px")
+    vs_one = {"share_within_tol": share, "mean_abs_diff": mean_d,
+              "max_abs_diff": float(d.max())}
+    del d, flow, ref
+
+    R = poly_exp(torch.cat([prev, nxt]), 5, 1.2)
+    R0, R1 = R[:1], R[1:]
+    fl = random_flow((1, 2, h, w), torch.Generator(dev).manual_seed(5), dev)
+    seam = h // 2
+    fl[:, 1, seam - 8:seam, 1000:3000] = 45.0
+    reset_launches()
+    M, n_fixed = HaloKernels(mesh).update_matrices_stats(
+        *(Blocks.split(t, [dev, dev]) for t in (R0, R1, fl)))
+    seam_launches = dict(LAUNCHES)
+    got = M.gather()
+    ref_m = update_matrices(R0, R1, fl)
+    torch.cuda.synchronize()
+    require(seam_launches["K5a"] == 2, f"{name}: seam case launches {seam_launches}")
+    require_close(f"{name} seam", got, ref_m, 1e-4, 1e-5)
+    require(n_fixed >= 8 * 2000, f"{name}: only {n_fixed} seam pixels corrected")
+    emit(name, h=h, w=w, batch=1, mesh=list(mesh.devices.shape),
+         devices=[str(x) for x in mesh.devices.flat], launches=launches,
+         vs_one_device=vs_one, interior_epe_px=epe, wall_s=wall_s,
+         seam_case={"band": [seam - 8, seam, 1000, 3000], "dy": 45.0,
+                    "seam_pixels_corrected": n_fixed,
+                    "max_abs_diff": float((got - ref_m).abs().max())},
+         card=power)
+
+
 def clip_offsets(n: int, amplitude: int) -> list:
     """Column offsets of a clip moving 1 px per frame, back and forth
     between 0 and `amplitude` (a triangle wave)."""
@@ -1517,6 +1687,10 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     e2e_phase("e2e_8k", *WIDE, cfg, dev, golden, power, stats, batch=1,
               shift=SHIFT_8K)
+    torch.cuda.empty_cache()
+    mesh_dp_phase(dev, power)
+    torch.cuda.empty_cache()
+    mesh_sp_phase(dev, power)
     torch.cuda.empty_cache()
     selftest_phase(power)
     torch.cuda.empty_cache()

@@ -6,9 +6,10 @@ and with `optical_flow_tpu.cli.optical_flow`:
         [--top_percentile 5] [--force_run False] [--device cuda|cpu]
 
 Same positional and flag names, same defaults, the same string-typed
---force_run; `--device` (default `cuda`, the current card, which raises
-where there is none; `cpu` runs the plain PyTorch versions) is the
-port's.  As for the JAX CLI, OFT_DEBUG_NANS=1 checks each chunk's flow
+--force_run; `--device` (default `cuda`: the current card, which raises
+where there is none, or every visible card where there are several and
+OFT_DISABLE_MESH is not 1; `cuda:<i>` one card; `cpu` the plain PyTorch
+versions) is the port's.  As for the JAX CLI, OFT_DEBUG_NANS=1 checks each chunk's flow
 for NaNs (`utils/validate.py`) and OFT_COMPILE_CACHE says where the
 kernels are built and found (`utils/compile_cache.py`).  `--num_workers` and `--worker_index` shard the
 corpus; without them, OFT_COORDINATOR_ADDRESS, OFT_NUM_PROCESSES and
@@ -80,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                              ".progress high-water mark instead of "
                              "redoing the whole video")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (the current card, the default) or cpu "
-                             "(the plain PyTorch versions)")
+                        help="cuda (the default: every visible card, or the "
+                             "current one with OFT_DISABLE_MESH=1), cuda:<i> "
+                             "(one card) or cpu (the plain PyTorch versions)")
     return parser
 
 

@@ -7,8 +7,10 @@
 
 (As in the reference, the first positional is named video_dir but is a
 video FILE path.)  It runs on the current CUDA card (`--device cuda`, the
-default; it raises where there is none) or, with `--device cpu`, runs the
-plain PyTorch versions on the CPU.  As for the JAX CLI, OFT_DEBUG_NANS=1
+default; it raises where there is none), on every visible card where there
+are several and OFT_DISABLE_MESH is not 1, on one card with
+`--device cuda:<i>`, or, with `--device cpu`, runs the plain PyTorch
+versions on the CPU.  As for the JAX CLI, OFT_DEBUG_NANS=1
 checks each chunk's flow for NaNs (`utils/validate.py`) and
 OFT_COMPILE_CACHE says where the kernels are built and found
 (`utils/compile_cache.py`).
@@ -39,8 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="compute one sampled frame pair with cv2 and log "
                              "mean EPE vs the 0.5-px gate")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (the current card, the default) or cpu "
-                             "(the plain PyTorch versions)")
+                        help="cuda (the default: every visible card, or the "
+                             "current one with OFT_DISABLE_MESH=1), cuda:<i> "
+                             "(one card) or cpu (the plain PyTorch versions)")
     return parser
 
 

@@ -331,7 +331,8 @@ extern "C" int oft_blur_solve(const float* M, const float* taps, float* flow,
   if (m < 0 || rows_per_block < G || rows_per_block % G != 0 ||
       sizeof(float) * smem_floats(m) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (taps != nullptr)
@@ -347,7 +348,8 @@ extern "C" int oft_blur_solve_tile(const float* M, const float* taps, float* flo
                                    int B, int H, int W, int m, float scale,
                                    int device, void* stream) {
   if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);

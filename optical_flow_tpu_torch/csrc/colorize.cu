@@ -44,6 +44,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -348,7 +350,8 @@ extern "C" int oft_colorize(const float* flow, float* parts,
                             long long plane, int device, void* stream) {
   if (B < 1 || plane < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   static DeviceInfo info[64];
   DeviceInfo& di = info[device];

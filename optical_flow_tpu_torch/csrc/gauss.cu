@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -444,7 +446,8 @@ extern "C" int oft_gauss(const void* src, int src_u8, float* dst, int n,
                          int tx, int device, void* stream) {
   if (!valid(ntaps, ty, tx) || n < 1 || H < 1 || W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Tile t = make_tile(H, W, ntaps, ty, tx);
   t.vec_in = W % 4 == 0 && reinterpret_cast<uintptr_t>(src) % (src_u8 ? 4 : 16) == 0;
@@ -459,7 +462,8 @@ extern "C" int oft_gauss(const void* src, int src_u8, float* dst, int n,
 extern "C" int oft_gauss_occupancy(int src_u8, int ntaps, int ty, int tx,
                                    int device, int* blocks, int* smem) {
   if (!valid(ntaps, ty, tx)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bytes = static_cast<int>(smem_bytes(make_tile(1, 1, ntaps, ty, tx)));
   *smem = bytes;

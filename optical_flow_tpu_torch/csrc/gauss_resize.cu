@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxTaps = 32;
@@ -284,7 +286,8 @@ extern "C" int oft_gauss_resize(const void* src, int src_u8, float* dst,
                                 int aligned, int device, void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Taps t = {};
   for (int i = 0; i < ntaps; ++i) t.v[i] = taps[i];
@@ -300,7 +303,8 @@ extern "C" int oft_gauss_resize(const void* src, int src_u8, float* dst,
 // shared memory, into *blocks.  Returns a cudaError_t.
 extern "C" int oft_gauss_resize_occupancy(int src_u8, int smem, int device,
                                           int* blocks) {
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (src_u8) {
     err = cudaFuncSetAttribute(gauss_resize_kernel<uint8_t>,

@@ -423,7 +423,8 @@ extern "C" int oft_polyexp(const void* src, int src_u8, float* R, int nimg,
   size_t smem;
   int rc = pick_checked(src_u8, pre, n, tile, &fn, &smem);
   if (rc != 0) return rc;
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

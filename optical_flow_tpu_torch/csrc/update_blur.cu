@@ -225,7 +225,8 @@ extern "C" int oft_update_blur(const float* R0, const float* R1,
                                void* stream) {
   if (m < 0 || rows_per_block < G || rows_per_block % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (taps != nullptr)
@@ -240,7 +241,8 @@ extern "C" int oft_update_blur(const float* R0, const float* R1,
 // cudaError_t.
 extern "C" int oft_update_blur_occupancy(int m, int gauss, int device,
                                          int* blocks, int* smem) {
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   *smem = static_cast<int>(sizeof(float) * smem_floats(m));
   auto kernel = gauss ? update_blur_kernel<true> : update_blur_kernel<false>;

@@ -173,7 +173,8 @@ extern "C" int oft_update_blur_poly(const void* img0, const void* img1,
                                     int device, void* stream) {
   if (m < 0 || n < 1 || n > oft::kPolyMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const PolyConsts c = oft::poly_consts(consts, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

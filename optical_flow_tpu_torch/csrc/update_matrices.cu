@@ -45,7 +45,8 @@ __global__ void update_matrices_kernel(const float* __restrict__ R0,
 extern "C" int oft_update_matrices(const float* R0, const float* R1,
                                    const float* flow, float* M, int B, int H,
                                    int W, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const oft::DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 block(TX, TY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);

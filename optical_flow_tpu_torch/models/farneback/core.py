@@ -116,17 +116,19 @@ def poly_exp(img: torch.Tensor, poly_n: int, poly_sigma: float,
     ], dim=-3)
 
 
+def border_axis_weights(n: int) -> np.ndarray:
+    """The border down-weighting along one axis of length n (f32, host):
+    per k < 5, the leading edge's factor, then the trailing edge's."""
+    wv = np.ones(n, np.float32)
+    for i in range(min(BORDER, n)):
+        wv[i] *= BORDER_WEIGHTS[i]
+        wv[n - 1 - i] *= BORDER_WEIGHTS[i]
+    return wv
+
+
 def border_scale_field(h: int, w: int) -> np.ndarray:
     """Separable per-pixel down-weighting near image borders (f32, host)."""
-    wx = np.ones(w, np.float32)
-    wy = np.ones(h, np.float32)
-    for i in range(min(BORDER, w)):
-        wx[i] *= BORDER_WEIGHTS[i]
-        wx[w - 1 - i] *= BORDER_WEIGHTS[i]
-    for i in range(min(BORDER, h)):
-        wy[i] *= BORDER_WEIGHTS[i]
-        wy[h - 1 - i] *= BORDER_WEIGHTS[i]
-    return wy[:, None] * wx[None, :]
+    return border_axis_weights(h)[:, None] * border_axis_weights(w)[None, :]
 
 
 def update_matrices(R0: torch.Tensor, R1: torch.Tensor,

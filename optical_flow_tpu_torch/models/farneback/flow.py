@@ -54,9 +54,8 @@ def _level_images(frames: torch.Tensor, kern, out_w: int,
     return resize_bilinear_f32(gaussian_blur(frames, kern), out_w, out_h)
 
 
-def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
-                  chain: bool, initial_flow: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+def _flow_pyramid(frames, plan: FarnebackPlan, plain: bool, chain: bool,
+                  initial_flow: torch.Tensor | None = None, sp_kernels=None):
     """Coarse-to-fine schedule on an (N, H, W) uint8/f32 frame batch.
 
     chain=False: the batch holds the B first frames, then the B second
@@ -67,9 +66,26 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
     initial_flow: an optional (B, 2, H, W) f32 seed on the frames' device
     (OPTFLOW_USE_INITIAL_FLOW): the coarsest level starts from its
     INTER_AREA downsample scaled to the level, as cv2 does.  plain=True
-    runs the kernels' plain versions on any device."""
+    runs the kernels' plain versions on any device.
+
+    sp_kernels: a `parallel.halo.HaloKernels`, with `frames` the row
+    blocks (`halo.Blocks`) of one spatial group: every stage then runs
+    per block with a halo exchange, the JAX package's sp route
+    (`optical_flow_tpu/models/farneback/flow.py:184-195, 316-330`): level
+    0 is `sp.gauss` then `sp.poly_exp` (no pre-smooth in the expansion),
+    coarser levels `sp.gauss` and the bilinear resize, the iterate
+    `sp.update_matrices_stats` -> `sp.blur_solve`.  No K1, K3 or K7 runs,
+    and the flow comes back as row blocks."""
     cfg = plan.config
-    if plain:
+    resize_fn = resize_bilinear_f32
+    if sp_kernels is not None:
+        if initial_flow is not None:
+            raise ValueError("the spatially sharded pyramid takes no seed")
+        level_fn, poly_fn, iterate_fn = (sp_kernels.level_images,
+                                         sp_kernels.poly_exp,
+                                         sp_kernels.update_flow)
+        resize_fn = sp_kernels.resize_bilinear
+    elif plain:
         level_fn, poly_fn, iterate_fn = (core.gaussian_blur_resize,
                                          core.poly_exp, core.update_flow)
     else:
@@ -77,25 +93,32 @@ def _flow_pyramid(frames: torch.Tensor, plan: FarnebackPlan, plain: bool,
                                          fused_iterate.update_flow)
     B = frames.shape[0] - 1 if chain else frames.shape[0] // 2
     # K7 takes the level images and derives R in the step (no K2 launch)
-    poly_fused = not plain and fused_iterate.use_fused_poly(cfg.winsize,
-                                                           cfg.poly_n)
+    poly_fused = (not plain and sp_kernels is None
+                  and fused_iterate.use_fused_poly(cfg.winsize, cfg.poly_n))
     flow = None
     for lv in plan.levels:
         kern = gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
         # every level is built from the original frame, never from another
         # level; level 0 is the frame itself, pre-smoothed by the expansion
-        imgs, pre = ((level_fn(frames, kern, lv.width, lv.height), None)
-                     if lv.k > 0 else (frames, kern))
+        # (or, under sp, by the sharded Gaussian)
+        if lv.k > 0:
+            imgs, pre = level_fn(frames, kern, lv.width, lv.height), None
+        elif sp_kernels is not None:
+            imgs, pre = sp_kernels.gauss(frames, kern), None
+        else:
+            imgs, pre = frames, kern
         if not poly_fused:
             R = poly_fn(imgs, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
         if flow is None and initial_flow is not None:
             scale = float(np.float32(cfg.pyr_scale ** lv.k))
             flow = resize_area_f32(initial_flow, lv.width, lv.height) * scale
+        elif flow is None and sp_kernels is not None:
+            flow = sp_kernels.zeros((B, 2, lv.height, lv.width), frames)
         elif flow is None:
             flow = torch.zeros((B, 2, lv.height, lv.width),
                                dtype=torch.float32, device=frames.device)
         else:
-            flow = resize_bilinear_f32(flow, lv.width, lv.height)
+            flow = resize_fn(flow, lv.width, lv.height)
             flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
         if poly_fused:
             img0, img1 = (imgs[:-1], imgs[1:]) if chain else (imgs[:B], imgs[B:])

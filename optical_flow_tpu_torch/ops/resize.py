@@ -74,10 +74,28 @@ def resize_bilinear_f32(src: torch.Tensor, dw: int, dh: int) -> torch.Tensor:
     sh, sw = src.shape[-2:]
     if (dw, dh) == (sw, sh):
         return src
-    dev = src.device
-    sx0, sx1, tx = (torch.as_tensor(a, device=dev) for a in _coeffs_f32(sw, dw))
-    sy0, sy1, ty = (torch.as_tensor(a, device=dev) for a in _coeffs_f32(sh, dh))
-    sx0, sx1, sy0, sy1 = (a.long() for a in (sx0, sx1, sy0, sy1))
+    return bilinear_rows(src, dw, *coeff_tensors(sh, dh, src.device))
+
+
+@functools.lru_cache(maxsize=256)
+def coeff_tensors(s_len: int, d_len: int, device: torch.device):
+    """`_coeffs_f32`'s (s0, s1, t) on `device`, int64 indices: made once
+    per (lengths, device), because a pageable host-to-device copy waits
+    for the device's queue, which would stall the host at every resize."""
+    s0, s1, t = _coeffs_f32(s_len, d_len)
+    return (torch.as_tensor(s0, device=device).long(),
+            torch.as_tensor(s1, device=device).long(),
+            torch.as_tensor(t, device=device))
+
+
+def bilinear_rows(src: torch.Tensor, dw: int, sy0: torch.Tensor,
+                  sy1: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
+    """resize_bilinear_f32's two passes with the vertical tables given:
+    the output rows that (sy0, sy1, ty) select, indices into src's rows.
+    A row block of a taller frame passes its slice of the frame's tables,
+    shifted to the rows it holds, and gets the frame's output rows to the
+    bit."""
+    sx0, sx1, tx = coeff_tensors(src.shape[-1], dw, src.device)
     row = (src.index_select(-1, sx0) * (1.0 - tx)
            + src.index_select(-1, sx1) * tx)
     ty = ty[:, None]

@@ -24,13 +24,16 @@ Each needed frame is decoded once, in order, by the decode-ahead threads,
 which also resize it to `frame_width` and convert it to gray
 (`ops/host.py`); `extract_frames` uploads it through pinned memory and
 sends the window pairs to the card `pair_chunk_for` at a time, two chunks
-in flight, one host sync per chunk for its sums.  Only the one-device
-branch of the JAX package's `_magnitude_sums` is here; its mesh branch
-belongs to a multi-GPU path.
+in flight, one host sync per chunk for its sums.  On a host with more
+than one visible card, where the caller names no device (None, or
+"cuda" without an index), a chunk is split over every card as the JAX
+package splits it over the local chips (`_dp_mesh`,
+`_sharded_magnitude_sums`); `OFT_DISABLE_MESH=1` keeps it on one card.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
@@ -44,6 +47,7 @@ from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
 from optical_flow_tpu_torch.ops.host import bgr2gray_host, resize_gray_host
 from optical_flow_tpu_torch.ops.polar import magnitude
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
+from optical_flow_tpu_torch.parallel.mesh import Mesh, _magnitudes, make_mesh
 from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
                                                       pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (EXTRACTOR, ExtractorConfig,
@@ -92,14 +96,57 @@ def _flow_and_sums(prev, nxt, config: FarnebackConfig, *, device, plain: bool):
     return flow, magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
 
 
-def _magnitude_sums(prev_batch: torch.Tensor, next_batch: torch.Tensor,
-                    config: ExtractorConfig, *, device, plain: bool = False,
-                    nan_check: bool = False):
-    """The one-device branch of the JAX package's `_magnitude_sums`
-    (`extractor.py:111-114`): (sums, finite), sums a device tensor (B,),
-    so that chunks pipeline without a host sync each, and finite, with
-    nan_check, a device bool: whether every component of the chunk's flow
-    is finite (`utils/validate.py:DEBUG_NANS`); None without."""
+@functools.lru_cache(maxsize=8)
+def _dp_mesh(device=None) -> Optional[Mesh]:
+    """A data-parallel mesh over every visible card, or None: with
+    OFT_DISABLE_MESH=1, with one card or none visible, or where the caller
+    named a device (an indexed card, or the CPU; None and "cuda" name
+    none), as the JAX package's `_dp_mesh` (`extractor.py:70-80`)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return None
+    if os.environ.get("OFT_DISABLE_MESH") == "1":
+        return None
+    if torch.cuda.device_count() <= 1:
+        return None
+    return make_mesh(n_spatial=1)
+
+
+def _sharded_magnitude_sums(mesh: Mesh, prev_batch, next_batch,
+                            config: ExtractorConfig, nan_check: bool = False):
+    """The mesh branch of the JAX package's `_magnitude_sums`
+    (`extractor.py:96-110`): the batch padded to a multiple of the mesh's
+    devices by repeating the last pair, `sharded_extract_step`'s shards,
+    and the first b pairs' sums, on the mesh's first device.  The
+    magnitudes of the b pairs are reduced as one batch, as on one device,
+    so the sums are those of `_magnitude_sums` without a mesh to the bit
+    (a padded batch would reduce differently).  (sums, finite) as
+    `_magnitude_sums`."""
+    prev_batch, next_batch = torch.as_tensor(prev_batch), torch.as_tensor(next_batch)
+    n = mesh.devices.size
+    b = prev_batch.shape[0]
+    pad = -(-b // n) * n - b
+    if pad:
+        prev_batch = torch.cat([prev_batch, prev_batch[-1:].expand(pad, *prev_batch.shape[1:])])
+        next_batch = torch.cat([next_batch, next_batch[-1:].expand(pad, *next_batch.shape[1:])])
+    mags, finite = _magnitudes(mesh, prev_batch, next_batch, config.farneback,
+                               nan_check)
+    return mags[:b].sum(dim=(-2, -1)), finite
+
+
+def _magnitude_sums(prev_batch, next_batch, config: ExtractorConfig, *, device,
+                    plain: bool = False, nan_check: bool = False,
+                    mesh: Optional[Mesh] = None):
+    """The JAX package's `_magnitude_sums` (`extractor.py:83-114`):
+    (sums, finite), sums a device tensor (B,), so that chunks pipeline
+    without a host sync each, and finite, with nan_check, a device bool:
+    whether every component of the chunk's flow is finite
+    (`utils/validate.py:DEBUG_NANS`); None without.  With a mesh
+    (`_dp_mesh`), the sharded branch, on the mesh's first device."""
+    if mesh is not None:
+        return _sharded_magnitude_sums(mesh, prev_batch, next_batch, config,
+                                       nan_check)
     flow, sums = _flow_and_sums(prev_batch, next_batch, config.farneback,
                                 device=device, plain=plain)
     return sums, (torch.isfinite(flow).all() if nan_check else None)
@@ -122,12 +169,14 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     chunks stay in flight, and a chunk's sums come back with one host
     sync, each then passed to on_result(index, start, end, sum).  Frames
     below the earliest start still needed are dropped.  device: by
-    default the current card; "cpu" runs the plain versions.  `plain` as
-    in calc_flow_batched.  With `validate_sample` (a list), the first
-    chunk's first pair is appended to it as host arrays.  Under
+    default the current card, and every visible card where `_dp_mesh`
+    gives a mesh; "cpu" runs the plain versions.  `plain` as in
+    calc_flow_batched (one device).  With `validate_sample` (a list), the
+    first chunk's first pair is appended to it as host arrays.  Under
     OFT_DEBUG_NANS=1 (`utils/validate.py`) each chunk's flow is checked
     on the device and read with its sums; a non-finite chunk raises
     FloatingPointError."""
+    mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
     results = {}
@@ -156,7 +205,8 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
             prev = torch.stack([live[w[0]] for _, w in chunk])
             nxt = torch.stack([live[w[1]] for _, w in chunk])
             sums, finite = _magnitude_sums(prev, nxt, config, device=device,
-                                           plain=plain, nan_check=validate.DEBUG_NANS)
+                                           plain=plain, nan_check=validate.DEBUG_NANS,
+                                           mesh=mesh)
         metrics.add("frame_pairs", len(chunk))
         inflight.append((chunk, sums, finite))
         # two chunks in flight; older results are complete by now, so
@@ -207,9 +257,9 @@ def extract_video(v_path: str, config: ExtractorConfig,
     checkpoint are not decoded or computed again; newly completed chunks
     are appended to it as their results land.  Results are aggregated in
     window-index order, so a resumed run's CSV is byte-identical to an
-    uninterrupted one.  device: by default the current card (raises
-    without one); "cpu" runs the plain versions."""
-    device = resolve_device(device)
+    uninterrupted one.  device: as in extract_frames (raises without a
+    card unless it is "cpu")."""
+    card = resolve_device(device)
     metrics = PipelineMetrics("extract")
     vid = VideoReader(v_path)
     if not vid.is_opened():
@@ -246,7 +296,7 @@ def extract_video(v_path: str, config: ExtractorConfig,
         with metrics.stage("stream"):
             mags_by_idx.update(extract_frames(
                 prefetch, todo, config,
-                chunk_size=pair_chunk_for(max(fh, 1), max(fw, 1), device=device),
+                chunk_size=pair_chunk_for(max(fh, 1), max(fw, 1), device=card),
                 device=device, metrics=metrics,
                 on_result=None if progress_ckpt is None else progress_ckpt.record,
                 validate_sample=validate_sample))
@@ -257,7 +307,7 @@ def extract_video(v_path: str, config: ExtractorConfig,
     aggregated, timestamps = aggregate(mags_by_idx, tot_frames, fps, step)
     if validate_sample:
         epe = validate.sampled_epe(*validate_sample[0], config.farneback,
-                                   device=device)
+                                   device=card)
         validate.log_validation(epe, f"extract:{os.path.basename(v_path)}")
         if epe is not None:
             metrics.counters["validate_mean_epe"] = epe
@@ -299,7 +349,7 @@ def scale_magnitudes(mag: Sequence[float], top_percentile: int):
 
 
 def _process_one(features_root: str, videoid: str, config: ExtractorConfig,
-                 device: torch.device) -> bool:
+                 device) -> bool:
     """One video of the corpus loop: paths, .done gate, extract, CSV.
     Returns True if work ran (or was skipped cleanly); raises on failure."""
     features_dir = os.path.join(features_root, videoid, EXTRACTOR)
@@ -340,9 +390,9 @@ def run_corpus(features_root: str, videoids: Sequence[str],
     would select wrong frames here (OFIO_ALLOW_VFR=1 forces it).
     video_workers > 1 overlaps whole videos in threads; outputs and
     `.done` are per video and unaffected.  device: where every video
-    runs, by default the current card (raises without one, before any
-    video); "cpu" runs the plain versions."""
-    device = resolve_device(device)
+    runs, as in extract_frames (raises without a card, before any video,
+    unless it is "cpu")."""
+    resolve_device(device)
     logger.info("Computing optical flow for {0} videos".format(len(videoids)))
     failures = []
     if video_workers <= 1:

@@ -6,7 +6,8 @@ The position list is split into contiguous segments, each decoded by its
 own native VideoReader on its own thread, feeding bounded queues that the
 consumer drains strictly in order: the reference's early-break contract
 (the first failed read aborts everything after it) holds while decode
-runs N wide.  An optional `transform` runs in the worker threads.
+runs N wide, at most `depth` frames ahead of the consumer.  An optional
+`transform` runs in the worker threads.
 """
 
 from __future__ import annotations
@@ -20,9 +21,6 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.io.video import VideoReader
-
-
-_DECODE_AHEAD = 16     # frames decoded ahead of the consumer, over all segments
 
 
 def default_decode_workers(n_positions: int) -> int:
@@ -42,10 +40,12 @@ class DecodePrefetcher:
 
     Yields (pos, frame_or_transform(frame) | None); a failed read yields
     (pos, None) and stops (the reference's early-break contract, even when
-    later segments decoded successfully).
+    later segments decoded successfully).  depth: the frames decoded ahead
+    of the consumer, over all segments (at least 2 a segment).
     """
 
     def __init__(self, v_path: str, positions: Iterable[float],
+                 depth: int = 16,
                  transform: Optional[Callable[[np.ndarray], object]] = None,
                  workers: Optional[int] = None):
         self._positions = list(positions)
@@ -55,7 +55,7 @@ class DecodePrefetcher:
         workers = max(1, min(workers, max(n, 1)))
         self._stop = threading.Event()
         self._queues = []
-        qdepth = max(2, _DECODE_AHEAD // workers)
+        qdepth = max(2, depth // workers)
         bounds = [round(i * n / workers) for i in range(workers + 1)]
         for i in range(workers):
             seg = self._positions[bounds[i]:bounds[i + 1]]
@@ -122,17 +122,24 @@ def upload(frame, device: torch.device) -> torch.Tensor:
 
 
 _REF_DEVICE_BYTES = 16 << 30    # the 16 GiB chip the pixel budget was sized on
-_MAX_PAIRS = 128
 
 
-def pair_chunk_for(h: int, w: int, device=None) -> int:
+def pair_chunk_for(h: int, w: int, budget_pixels: Optional[int] = None,
+                   cap: int = 128, *, device=None) -> int:
     """Frame pairs per device dispatch, bounded by a device-memory pixel
-    budget: 32 M pixels per 16 GiB of the device's memory (the JAX
-    package's rule), scaled by `torch.cuda.mem_get_info(device)[1]` for a
-    CUDA device; other devices keep the 16 GiB budget.  At 1080p that is
-    16 pairs, and 80 on an 80 GB card."""
-    scale = 1.0
-    if device is not None and torch.device(device).type == "cuda":
-        scale = torch.cuda.mem_get_info(device)[1] / _REF_DEVICE_BYTES
-    budget_pixels = int((32 << 20) * scale)
-    return max(1, min(_MAX_PAIRS, budget_pixels // (h * w)))
+    budget, the JAX package's rule: `budget_pixels`, by default 32 M
+    pixels per 16 GiB of the device's memory,
+    `torch.cuda.mem_get_info(device)[1]` for a CUDA device (other devices
+    keep the 16 GiB budget), with a scale between 0.85 and 1.15 snapped
+    to exactly 1.0; at most `cap` pairs.  At 1080p that is 16 pairs, and
+    80 on an 80 GB card."""
+    if budget_pixels is None:
+        scale = 1.0
+        if device is not None and torch.device(device).type == "cuda":
+            scale = torch.cuda.mem_get_info(device)[1] / _REF_DEVICE_BYTES
+        # a device reporting a little under (or over) the 16 GiB the budget
+        # was sized on keeps that device's chunk sizes
+        if 0.85 <= scale <= 1.15:
+            scale = 1.0
+        budget_pixels = int((32 << 20) * scale)
+    return max(1, min(cap, budget_pixels // (h * w)))

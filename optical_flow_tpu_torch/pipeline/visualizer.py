@@ -20,7 +20,10 @@ Behavioral contract:
 Sampled frames stream through the decode-ahead threads, which also convert
 them to gray; `visualize_frames` runs the chained pyramid and K4 on the
 device, a chunk of pairs per dispatch, and keeps one chunk in flight while
-it downloads the one before; JPEG encode runs on a host thread pool.
+it downloads the one before; JPEG encode runs on a host thread pool.  On a
+host with several visible cards (`pipeline/extractor.py:_dp_mesh`) a chunk
+is split into overlapping sub-chains, one a card (`parallel/mesh.py:
+chain_shards`), as the JAX visualizer splits it over the local chips.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from optical_flow_tpu_torch.io.video import VideoReader
 from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow_chain_batched, flow_bgr)
 from optical_flow_tpu_torch.ops.host import bgr2gray_host
+from optical_flow_tpu_torch.parallel.mesh import _bgr_chain_shards, chain_shards
+from optical_flow_tpu_torch.pipeline.extractor import _dp_mesh
 from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
                                                       pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (FarnebackConfig,
@@ -46,17 +51,27 @@ from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
 
-def _download(bgr: torch.Tensor, ready, stream) -> np.ndarray:
-    """A chunk's BGR to host numpy.  On a card the copy runs on its own
-    stream and waits only for its chunk's `ready` event, so the next
-    chunk's kernels keep running meanwhile."""
-    if stream is None:
-        return bgr.numpy()
-    host = torch.empty(bgr.shape, dtype=bgr.dtype, pin_memory=True)
-    stream.wait_event(ready)
-    with torch.cuda.stream(stream):
-        host.copy_(bgr, non_blocking=True)
-    stream.synchronize()
+def _download(parts, streams: dict) -> np.ndarray:
+    """A chunk's BGR, [(shard's BGR, its `ready` event)] in pair order, to
+    one host numpy array.  On a card each shard's copy runs on its card's
+    copy stream (`streams`) into pinned memory and waits only for that
+    shard's `ready` event, so the next chunk's kernels keep running
+    meanwhile."""
+    if parts[0][1] is None:
+        return (parts[0][0] if len(parts) == 1
+                else torch.cat([bgr for bgr, _ in parts])).numpy()
+    n = sum(bgr.shape[0] for bgr, _ in parts)
+    host = torch.empty((n,) + tuple(parts[0][0].shape[1:]), dtype=torch.uint8,
+                       pin_memory=True)
+    off = 0
+    for bgr, ready in parts:
+        stream = streams[bgr.device]
+        stream.wait_event(ready)
+        with torch.cuda.stream(stream):
+            host[off:off + bgr.shape[0]].copy_(bgr, non_blocking=True)
+        off += bgr.shape[0]
+    for stream in {streams[bgr.device] for bgr, _ in parts}:
+        stream.synchronize()
     return host.numpy()
 
 
@@ -72,21 +87,24 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     order.  Pairs go to the device `chunk_size` at a time as one chain
     (`calc_flow_chain_batched`, then K4), each chunk restacking the previous
     chunk's last frame; a chunk is downloaded once the next one is
-    dispatched.  device: where the flow runs, by default the current card
-    (raises without one; "cpu" runs the plain versions).  `plain` as in
-    calc_flow_batched.  Returns the number of pairs written."""
+    dispatched.  device: where the flow runs, by default the current card,
+    and every visible card where `_dp_mesh` gives a mesh (each takes one
+    sub-chain of a chunk, `chain_shards`); raises without a card; "cpu"
+    runs the plain versions.  `plain` as in calc_flow_batched (one
+    device).  Returns the number of pairs written."""
+    mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("visualize")
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    streams = {}              # a copy stream per card that holds a shard
     stamps, gray, pend, inflight = [], [], [], []
     written = 0
 
     def drain_one():
         nonlocal written
-        dpend, bgr, ready, finite = inflight.pop(0)
+        dpend, parts, finite = inflight.pop(0)
         with metrics.stage("download"):
-            host = _download(bgr, ready, copy_stream)
-        if finite is not None and not bool(finite):
+            host = _download(parts, streams)
+        if finite is not None and not all(bool(f) for f in finite):
             raise FloatingPointError(
                 f"non-finite flow in the chunk from frame {dpend[0] - 1} "
                 f"(position {stamps[dpend[0] - 1]}; OFT_DEBUG_NANS=1)")
@@ -98,17 +116,28 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     def flush(pend):
         with metrics.stage("flow"):
             chain = torch.stack([gray[pend[0] - 1]] + [gray[i] for i in pend])
-            flow = calc_flow_chain_batched(chain, config, plain=plain).movedim(-1, 1)
-            finite = torch.isfinite(flow).all() if validate.DEBUG_NANS else None
-            bgr = flow_bgr(flow, plain)
-            ready = None
-            if copy_stream is not None:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(device))
+            if mesh is not None:
+                shards = _bgr_chain_shards(
+                    mesh, chain_shards(chain, mesh.shape["data"]), config,
+                    nan_check=validate.DEBUG_NANS)
+            else:
+                flow = calc_flow_chain_batched(chain, config, plain=plain).movedim(-1, 1)
+                shards = [(flow_bgr(flow, plain),
+                           torch.isfinite(flow).all() if validate.DEBUG_NANS else None)]
+            parts = []
+            for bgr, _ in shards:
+                ready = None
+                if bgr.is_cuda:
+                    if bgr.device not in streams:
+                        streams[bgr.device] = torch.cuda.Stream(bgr.device)
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(bgr.device))
+                parts.append((bgr, ready))
         metrics.add("frame_pairs", len(pend))
         for i in pend:
             gray[i - 1] = None     # pairs are consecutive: frame i-1 is done
-        inflight.append((list(pend), bgr, ready, finite))
+        finite = None if not validate.DEBUG_NANS else [f for _, f in shards]
+        inflight.append((list(pend), parts, finite))
         if len(inflight) > 1:
             drain_one()
 
@@ -139,7 +168,7 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
                    device=None) -> int:
     """Write flow/source JPEG pairs for one shot.  Returns #pairs written.
     device: as in visualize_frames (by default the current card)."""
-    device = resolve_device(device)
+    card = resolve_device(device)
     config = config or VisualizerConfig()
     os.makedirs(images_path, exist_ok=True)
 
@@ -197,7 +226,7 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
         with metrics.stage("stream"):
             written = visualize_frames(
                 gray_frames(), write_flow, config.farneback,
-                chunk_size=pair_chunk_for(h or 1080, w or 1920, device=device),
+                chunk_size=pair_chunk_for(h or 1080, w or 1920, device=card),
                 device=device, metrics=metrics)
             for f in encodes:
                 f.result()                  # surface encode errors
@@ -205,7 +234,7 @@ def visualize_shot(v_path: str, images_path: str, start_ms: int, end_ms: int,
         pool.shutdown()
     if len(validate_sample) == 2:
         epe = validate.sampled_epe(validate_sample[0], validate_sample[1],
-                                   config.farneback, device=device)
+                                   config.farneback, device=card)
         validate.log_validation(epe, f"visualize:{os.path.basename(v_path)}")
         if epe is not None:
             metrics.counters["validate_mean_epe"] = epe

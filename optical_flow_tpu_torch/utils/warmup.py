@@ -10,13 +10,17 @@ the chunk they launch them at, so a warmed worker's first real chunk
 builds nothing and its peak device memory is known:
 
   * `warmup_extractor`: `_magnitude_sums` on `pair_chunk_for(gh, gw,
-    device=)` pairs at the frame size `aspect_preserving_size` gives;
+    device=)` pairs at the frame size `aspect_preserving_size` gives,
+    sharded over every card where the extractor would shard it
+    (`pipeline/extractor.py:_dp_mesh`);
   * `warmup_visualizer`: `calc_flow_bgr_chain_batched` on the
-    `(pair_chunk_for(h, w, device=) + 1, h, w)` frame stack;
+    `(pair_chunk_for(h, w, device=) + 1, h, w)` frame stack, or under that
+    mesh `sharded_bgr_chain_step` on its `chain_shards`;
   * `warmup_flow`: `calc_flow_batched` and the magnitude sums.
 
 Each returns what it launched: the chunk, the shape, the seconds of the
-launch and, on a card, `torch.cuda.max_memory_allocated` over it.
+launch, the data shards it ran on and, on a card,
+`torch.cuda.max_memory_allocated` over it (on the first card).
 
 Cold-start packs: `pack_cache` writes this tree's built libraries
 (`<cache>/<hash>/lib<name>.so`) and a manifest (the hash, `sm_90a`,
@@ -54,7 +58,8 @@ from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow_batched, calc_flow_bgr_chain_batched)
 from optical_flow_tpu_torch.ops.polar import magnitude
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
-from optical_flow_tpu_torch.pipeline.extractor import _magnitude_sums
+from optical_flow_tpu_torch.parallel.mesh import chain_shards, sharded_bgr_chain_step
+from optical_flow_tpu_torch.pipeline.extractor import _dp_mesh, _magnitude_sums
 from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
 from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
 from optical_flow_tpu_torch.utils.config import ExtractorConfig, FarnebackConfig
@@ -67,20 +72,25 @@ ARCH = "sm_90a"
 MANIFEST = "manifest.json"
 
 
-def _launch(device: torch.device, shape, step) -> dict:
+def _launch(device: torch.device, shape, step, mesh=None) -> dict:
     """Build the kernels (on a card), then run `step()` once and wait for
-    it: its seconds and, on a card, its peak device memory."""
+    it (on every card of `mesh`): its seconds and, on a card, its peak
+    device memory on `device`."""
+    cards = [device] if mesh is None else sorted(set(mesh.devices.flat), key=str)
     if device.type == "cuda":
         _build.build()
-        torch.cuda.synchronize(device)
+        for d in cards:
+            torch.cuda.synchronize(d)
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     step()
     peak = None
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for d in cards:
+            torch.cuda.synchronize(d)
         peak = torch.cuda.max_memory_allocated(device)
     return {"shape": list(shape), "chunk": shape[0],
+            "shards": 1 if mesh is None else mesh.shape["data"],
             "seconds": time.perf_counter() - t0, "peak_bytes": peak}
 
 
@@ -107,7 +117,9 @@ def warmup_extractor(src_h: int, src_w: int,
                      device=None) -> dict:
     """Launch the extractor's device step for a source resolution once:
     `_magnitude_sums` at the `pair_chunk_for` chunk `extract_video`
-    sends, at the frame size its resize gives."""
+    sends, at the frame size its resize gives, sharded where the
+    extractor shards it."""
+    mesh = _dp_mesh(device)
     device = resolve_device(device)
     if config.frame_width:
         gw, gh = aspect_preserving_size(src_h, src_w, config.frame_width)
@@ -117,9 +129,9 @@ def warmup_extractor(src_h: int, src_w: int,
     z = torch.zeros((b, gh, gw), dtype=torch.uint8, device=device)
 
     def step():
-        float(_magnitude_sums(z, z, config, device=device)[0].sum())
+        float(_magnitude_sums(z, z, config, device=device, mesh=mesh)[0].sum())
 
-    info = _launch(device, (b, gh, gw), step)
+    info = _launch(device, (b, gh, gw), step, mesh)
     logger.info("warmed the extractor for %dx%d: %s", src_w, src_h, info)
     return info
 
@@ -129,16 +141,22 @@ def warmup_visualizer(src_h: int, src_w: int,
                       device=None) -> dict:
     """Launch the visualizer's device step for a source resolution once:
     the chained flow + colorize on the `(pair_chunk_for(h, w) + 1, h, w)`
-    frame stack `visualize_frames` sends.  `chunk` is the pair count."""
+    frame stack `visualize_frames` sends, split into sub-chains where the
+    visualizer splits it.  `chunk` is the pair count."""
+    mesh = _dp_mesh(device)
     device = resolve_device(device)
     b = pair_chunk_for(src_h, src_w, device=device)
     frames = torch.zeros((b + 1, src_h, src_w), dtype=torch.uint8, device=device)
 
     def step():
-        out = calc_flow_bgr_chain_batched(frames, config)
+        if mesh is None:
+            out = calc_flow_bgr_chain_batched(frames, config)
+        else:
+            out = sharded_bgr_chain_step(mesh, chain_shards(frames, mesh.shape["data"]),
+                                         config)
         int(out[:, :, ::31, ::31].sum())
 
-    info = _launch(device, (b + 1, src_h, src_w), step)
+    info = _launch(device, (b + 1, src_h, src_w), step, mesh)
     info["chunk"] = b
     logger.info("warmed the visualizer for %dx%d: %s", src_w, src_h, info)
     return info
@@ -230,8 +248,10 @@ def main(argv=None) -> int:
     parser.add_argument("--pack", help="write the built kernels into this .tgz")
     parser.add_argument("--unpack", help="restore a .tgz into the kernel cache")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (the current card, the default) or cpu "
-                             "(the plain versions; builds nothing)")
+                        help="cuda (the default: the current card, or every "
+                             "visible card where the pipelines shard), "
+                             "cuda:<i> (one card) or cpu (the plain "
+                             "versions; builds nothing)")
     args = parser.parse_args(argv)
     out = {"cache": str(_cache_dir())}
     if args.unpack:
@@ -244,8 +264,8 @@ def main(argv=None) -> int:
     for res in args.res:
         w, h = (int(v) for v in res.lower().split("x"))
         warmed.append({"res": res,
-                       "extractor": warmup_extractor(h, w, device=device),
-                       "visualizer": warmup_visualizer(h, w, device=device)})
+                       "extractor": warmup_extractor(h, w, device=args.device),
+                       "visualizer": warmup_visualizer(h, w, device=args.device)})
         if device.type == "cuda":
             torch.cuda.empty_cache()
     out["warmed"] = warmed

@@ -12,7 +12,9 @@ in-kernel) against K2 -> K1 to the bit, alone, per level and on the
 whole path with FUSE_POLYEXP on, and the strip-walking K1 and the
 band-staging K3 at shapes that straddle their strip, ring and tile
 edges, and the tile-staging K2 and strip-walking K5b equal to their plain
-versions to the bit at tile edges, every 1080p level and row-block size.
+versions to the bit at tile edges, every 1080p level and row-block size;
+the mesh's data and spatial axes (`parallel/`) on meshes that repeat the
+card, and that a launch leaves the caller's current device as it was.
 
 These need an NVIDIA card and nvcc, and skip without them.  The card's
 machine has no JAX, and tests/conftest.py imports it, so run them there
@@ -908,3 +910,152 @@ def test_build_runs_no_nvcc_a_second_time(dev):
     again = _build.build()
     assert again.nvcc_runs == 0
     assert all((_build.build_dir() / f"lib{n}.so").is_file() for n in _build.SOURCES)
+
+
+def _rolled_chain(n, h, w):
+    """n frames of a texture rolled (1, 2) px a frame, with +-1 noise."""
+    base = smooth_texture_pair(h, w, (1, 2), seed=3)[0].astype(np.int16)
+    noise = np.random.default_rng(3).integers(0, 2, (n, h, w))
+    return np.stack([np.clip(np.roll(base, (i, 2 * i), (0, 1)) + noise[i], 0, 255)
+                     for i in range(n)]).astype(np.uint8)
+
+
+def test_mesh_dp_on_one_card_equals_one_device(dev):
+    """chip_smoke's mesh_dp_1080p at a small size: on a [card, card] mesh,
+    sharded_flow_step, the extractor's branch (5 pairs padded to 6) and
+    sharded_bgr_chain_step over chain_shards equal the one-device entries
+    to the bit, through the kernels."""
+    from optical_flow_tpu_torch.parallel import (chain_shards, make_mesh,
+                                                 sharded_bgr_chain_step, sharded_flow_step)
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    mesh = make_mesh(2, 1, devices=[dev, dev])
+    frames = torch.as_tensor(_rolled_chain(6, 72, 129)).to(dev)
+    prev, nxt = frames[:-1], frames[1:]
+    assert torch.equal(sharded_flow_step(mesh, prev, nxt), calc_flow_batched(prev, nxt))
+    sums, _ = extractor._sharded_magnitude_sums(mesh, prev, nxt, ExtractorConfig())
+    assert torch.equal(sums, magnitude_sums(prev, nxt))
+    kernels.reset_launches()
+    bgr = sharded_bgr_chain_step(mesh, chain_shards(frames, 2))[:5]
+    L = len(build_plan(72, 129, FarnebackConfig()).levels)    # per shard
+    assert {k: kernels.LAUNCHES[k] for k in ("K1", "K2", "K3", "K4")} == {
+        "K1": 2 * 3 * L, "K2": 2 * L, "K3": 2 * (L - 1), "K4": 2}
+    assert torch.equal(bgr, calc_flow_bgr_chain_batched(frames))
+
+
+def test_mesh_sp_on_one_card(dev):
+    """chip_smoke's mesh_sp_8k at a small size, on a 1x2 [card, card] mesh:
+    the flow within the share gate of the one-device path, through K6, K2,
+    K5a and K5b only; and the cross-seam update, a band of dy = 45 px rows
+    just above the seam (past the 32-row halo), equal to K5a."""
+    from optical_flow_tpu_torch.parallel import HaloKernels, make_mesh, sharded_flow_step
+    from optical_flow_tpu_torch.parallel.halo import Blocks
+
+    mesh = make_mesh(1, 2, devices=[dev, dev])
+    f1, f2 = smooth_texture_pair(256, 384, (2, 3))
+    prev, nxt = (torch.as_tensor(f[None]).to(dev) for f in (f1, f2))
+    kernels.reset_launches()
+    flow = sharded_flow_step(mesh, prev, nxt)
+    launches = dict(kernels.LAUNCHES)
+    assert launches["K1"] == launches["K3"] == launches["K7"] == 0, launches
+    assert all(launches[k] > 0 for k in ("K2", "K5a", "K5b", "K6")), launches
+    ref = calc_flow_batched(prev, nxt)
+    d = (flow - ref).abs()
+    assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
+    assert float(d.mean()) <= 1e-3
+
+    R = poly_exp(torch.as_tensor(np.stack([f1, f2])).to(dev), 5, 1.2)
+    R0, R1 = R[:1].contiguous(), R[1:].contiguous()
+    gen = torch.Generator(dev).manual_seed(4)
+    fl = (torch.rand((1, 2, 256, 384), generator=gen, device=dev) - 0.5) * 12.0
+    fl[:, 1, 120:128, 40:200] = 45.0
+    hk = HaloKernels(mesh)
+    M, n_fixed = hk.update_matrices_stats(*(Blocks.split(t, [dev, dev]) for t in (R0, R1, fl)))
+    _close(M.gather(), update_matrices(R0, R1, fl), STENCIL_TOL)
+    assert n_fixed >= 8 * 160
+
+
+def test_launch_leaves_the_current_device(dev):
+    """Each kernel's entry restores the caller's current device: after
+    launches on cuda:0 tensors the current device is the one the caller
+    set.  Trivially true on one card; with several, the current device is
+    set to the last card first, so that only the guard keeps it there."""
+    last = torch.cuda.device_count() - 1
+    before = torch.cuda.current_device()
+    torch.cuda.set_device(last)
+    try:
+        img = torch.as_tensor(_frames(2, 40, 64)).to(dev)
+        R = poly_exp(img, 5, 1.2, pre_taps=PRE_TAPS)
+        flow = torch.zeros((1, 2, 40, 64), device=dev)
+        gauss_resize(img, LEVEL_TAPS[1], 32, 20)
+        gaussian_blur(img, LEVEL_TAPS[2])
+        update_blur(R[:1], R[1:], flow, 15)
+        blur_solve(update_matrices(R[:1], R[1:], flow), 15, False)
+        update_blur_poly(img[:1], img[1:], flow, 15, False, 5, 1.2)
+        flow_to_bgr_planar(torch.ones((1, 2, 40, 64), device=dev))
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == last
+        assert all(kernels.LAUNCHES[k] == 1 for k in kernels.LAUNCHES), kernels.LAUNCHES
+    finally:
+        torch.cuda.set_device(before)
+
+
+def test_mesh_across_the_visible_cards(dev):
+    """With two or more cards: the data axis over every card (the mesh
+    `_dp_mesh` builds), the extractor's and the visualizer's loops with no
+    device named (sharded) against one named card, and the spatial axis
+    over real cards (1 x n, and 2 x n/2 where n is even and at least 4),
+    held as on one repeated card."""
+    from optical_flow_tpu_torch.parallel import (HaloKernels, chain_shards, make_mesh,
+                                                 sharded_bgr_chain_step, sharded_flow_step)
+    from optical_flow_tpu_torch.parallel.halo import Blocks
+    from optical_flow_tpu_torch.pipeline import extractor, visualizer
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    extractor._dp_mesh.cache_clear()
+    mesh = extractor._dp_mesh()
+    assert mesh is not None and mesh.shape == {"data": n, "spatial": 1}
+    host = _rolled_chain(2 * n + 3, 72, 129)
+    frames = torch.as_tensor(host).to(dev)
+    prev, nxt = frames[:-1], frames[1:]
+    assert torch.equal(sharded_flow_step(mesh, prev, nxt), calc_flow_batched(prev, nxt))
+    assert torch.equal(sharded_bgr_chain_step(mesh, chain_shards(frames, n))[:2 * n + 2],
+                       calc_flow_bgr_chain_batched(frames))
+    seq = list(enumerate(host))
+    windows = [(i, (i, i + 1)) for i in range(2 * n + 2)]
+    assert (extractor.extract_frames(seq, windows, ExtractorConfig(), chunk_size=n + 1)
+            == extractor.extract_frames(seq, windows, ExtractorConfig(), chunk_size=n + 1,
+                                        device=dev))
+
+    def loop(device):
+        out = []
+        visualizer.visualize_frames(seq, lambda pos, b: out.append(b), chunk_size=n + 1,
+                                    device=device)
+        return np.stack(out)
+
+    np.testing.assert_array_equal(loop(None), loop(dev))
+
+    f1, f2 = smooth_texture_pair(256, 384, (2, 3))
+    p1, n1 = (torch.as_tensor(f[None]).to(dev) for f in (f1, f2))
+    ref = calc_flow_batched(p1, n1)
+    shapes = [(1, n)] + ([(2, n // 2)] if n >= 4 and n % 2 == 0 else [])
+    for n_dp, n_sp in shapes:
+        m = make_mesh(n_dp, n_sp)
+        flow = sharded_flow_step(m, p1.expand(n_dp, -1, -1), n1.expand(n_dp, -1, -1))
+        d = (flow - ref).abs()
+        assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999, (n_dp, n_sp)
+        assert float(d.mean()) <= 1e-3
+    R = poly_exp(torch.as_tensor(np.stack([f1, f2])).to(dev), 5, 1.2)
+    R0, R1 = R[:1].contiguous(), R[1:].contiguous()
+    fl = (torch.rand((1, 2, 256, 384), generator=torch.Generator(dev).manual_seed(4),
+                     device=dev) - 0.5) * 12.0
+    fl[:, 1, 56:64, 40:200] = 45.0
+    cards = [torch.device("cuda", i) for i in range(n)]
+    M, _ = HaloKernels(make_mesh(1, n)).update_matrices_stats(
+        *(Blocks.split(t, cards) for t in (R0, R1, fl)))
+    assert [p.device for p in M.parts] == cards
+    _close(M.gather(dev), update_matrices(R0, R1, fl), STENCIL_TOL)

@@ -2,8 +2,9 @@
 card: importing every port module (and chip_smoke.py as a module) pulls
 in neither JAX nor the JAX package and initialises no CUDA context; the
 wrappers, the flow and BGR entries, the visualizer's and the extractor's
-device loops, the corpus loop, both CLIs, the self test and the warmers
-launch nothing for CPU tensors or device="cpu"; every entry raises
+device loops, the corpus loop, both CLIs, the self test, the warmers and
+the sharded steps on CPU meshes launch nothing for CPU tensors or
+device="cpu"; every entry raises
 without a card unless asked for the CPU; the kernel build command targets sm_90a without FMA
 contraction."""
 
@@ -78,6 +79,9 @@ _PROBE = textwrap.dedent("""
     assert run_selftest(device="cpu", quick=True)["ok"]
     warmup_extractor(24, 32, ExtractorConfig(frame_width=32), device="cpu")
     warmup_visualizer(24, 32, device="cpu")
+    from optical_flow_tpu_torch.parallel import make_mesh, sharded_flow_step
+    sharded_flow_step(make_mesh(2, 1, devices=["cpu", "cpu"]), img[:1], img[1:])
+    sharded_flow_step(make_mesh(1, 2, devices=["cpu", "cpu"]), img[:1], img[1:])
     print(json.dumps({
         "modules": mods,
         "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -131,8 +135,8 @@ _SUBPACKAGE = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("sub", ["", ".models", ".models.farneback", ".ops", ".pipeline",
-                                 ".parallel", ".utils", ".oracle", ".io", ".cli",
-                                 ".kernels"])
+                                 ".parallel", ".parallel.mesh", ".parallel.halo", ".utils",
+                                 ".oracle", ".io", ".cli", ".kernels"])
 def test_subpackage_import_alone_is_clean(sub):
     """Each subpackage, imported first in a fresh interpreter and its
     exported names resolved, loads neither JAX nor the JAX package and
@@ -145,7 +149,7 @@ def test_subpackage_import_alone_is_clean(sub):
     r = json.loads(out.stdout.strip().splitlines()[-1])
     assert r["jax"] == [] and r["jax_package"] == []
     assert r["cuda_initialized"] is False
-    if sub not in (".cli", ".kernels"):
+    if sub not in (".cli", ".kernels", ".parallel.mesh", ".parallel.halo"):
         assert r["names"], "the subpackage exports nothing"
 
 

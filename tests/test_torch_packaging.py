@@ -5,7 +5,11 @@
   package-data glob of `pyproject.toml`, so an installed package builds.
 - Each subpackage re-exports the names of the JAX package's `__all__`
   that the port has, at the same paths, as the same objects as at their
-  modules.
+  modules; `parallel` all ten of JAX's.
+- Each re-exported callable, and the prefetch module's, takes the JAX
+  counterpart's parameters (names, kinds, defaults, positions), plus only
+  the keyword-only additions listed in KEYWORD_ADDITIONS; the two halo
+  names differ as DIFFERENT lists.
 - The redesigned K1 and K3 take every level they took before: K1 every
   winsize up to 61 (no wider, so winsize 63 stays on K5a -> K5b), K3 every
   level of the pyramids below that it took, pinned as literals; the
@@ -70,7 +74,12 @@ EXPORTS = {
                  "scale_magnitudes": "pipeline.extractor",
                  "run_corpus": "pipeline.extractor",
                  "visualize_shot": "pipeline.visualizer"},
-    "parallel": {"shard_videoids": "parallel.corpus"},
+    "parallel": {"shard_videoids": "parallel.corpus",
+                 "HaloKernels": "parallel.halo", "halo_extend": "parallel.halo",
+                 **{n: "parallel.mesh" for n in (
+                     "make_mesh", "shard_pairs", "chain_shards", "sharded_flow_step",
+                     "sharded_bgr_step", "sharded_extract_step",
+                     "sharded_bgr_chain_step")}},
     "utils": {"FarnebackConfig": "utils.config", "ExtractorConfig": "utils.config",
               "get_logger": "utils.logging"},
     "oracle": {n: "oracle.synthetic" for n in (
@@ -104,6 +113,68 @@ def test_reexports_are_named_as_in_the_jax_package(sub):
     the same path."""
     jax_all = set(_module("optical_flow_tpu", sub).__all__)
     assert set(EXPORTS[sub]) <= jax_all, set(EXPORTS[sub]) - jax_all
+
+
+def test_parallel_exports_all_of_jax_s_names():
+    assert sorted(_module("optical_flow_tpu_torch", "parallel").__all__) == sorted(
+        _module("optical_flow_tpu", "parallel").__all__)
+
+
+# Keyword-only parameters a port callable adds to its JAX counterpart's:
+# where to run, and the plain versions as the card's reference.
+KEYWORD_ADDITIONS = {
+    **{("models", n): {"device", "plain"} for n in (
+        "calc_flow_batched", "calc_flow_bgr_batched", "calc_flow_chain_batched",
+        "calc_flow_bgr_chain_batched")},
+    **{("models.farneback", n): {"device", "plain"} for n in (
+        "calc_flow_batched", "calc_flow_bgr_batched", "calc_flow_chain_batched",
+        "calc_flow_bgr_chain_batched")},
+    ("pipeline", "extract_video"): {"device"},
+    ("pipeline", "run_corpus"): {"device"},
+    ("pipeline", "visualize_shot"): {"device"},
+    ("pipeline.prefetch", "pair_chunk_for"): {"device"},
+}
+# Signatures that differ otherwise: the port's parameter names, and why.
+DIFFERENT = {
+    ("parallel", "HaloKernels"): (
+        ["self", "mesh"],
+        "no use_pallas: a block on a card runs the kernel, on the CPU its plain "
+        "version, by the tensor's device"),
+    ("parallel", "halo_extend"): (
+        ["blocks", "r", "mode"],
+        "the spatial group's blocks in one process (peer copies); JAX's runs "
+        "inside shard_map, per shard, with the group size and an axis name"),
+}
+# Module-level names the pipelines' signatures rest on, pinned as well.
+PINNED = {"pipeline.prefetch": ("DecodePrefetcher", "pair_chunk_for",
+                                "default_decode_workers")}
+CALLABLES = sorted({(sub, n) for sub, names in EXPORTS.items() for n in names}
+                   | {(m, n) for m, names in PINNED.items() for n in names})
+
+
+def _params(obj):
+    import inspect
+    sig = inspect.signature(obj.__init__ if inspect.isclass(obj) else obj)
+    return [(q.name, q.kind, None if q.default is q.empty else repr(q.default))
+            for q in sig.parameters.values()]
+
+
+@pytest.mark.parametrize("sub,name", CALLABLES)
+def test_signature_is_jax_s(sub, name):
+    """Each re-exported callable takes the JAX counterpart's parameters,
+    names, kinds and defaults, at the same positions; the port adds only
+    the keyword-only parameters of KEYWORD_ADDITIONS, and the callables of
+    DIFFERENT differ as listed there."""
+    import inspect
+    port = _params(getattr(_module("optical_flow_tpu_torch", sub), name))
+    ref = _params(getattr(_module("optical_flow_tpu", sub), name))
+    if (sub, name) in DIFFERENT:
+        assert [q[0] for q in port] == DIFFERENT[(sub, name)][0]
+        return
+    added = KEYWORD_ADDITIONS.get((sub, name), set())
+    assert {q[0] for q in port if q[0] in added} == added
+    assert all(q[1] is inspect.Parameter.KEYWORD_ONLY for q in port if q[0] in added)
+    assert [q for q in port if q[0] not in added] == ref
 
 
 def test_unknown_lazy_name_raises_attribute_error():

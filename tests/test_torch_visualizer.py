@@ -320,6 +320,41 @@ def test_pair_chunk_for(monkeypatch):
     assert prefetch.pair_chunk_for(1080, 1920, device="cpu") == 16
 
 
+
+@pytest.mark.parametrize("gib", [14, 15.5, 16, 18, 18.5, 80])
+def test_pair_chunk_for_scale_snap_and_positional_args(monkeypatch, gib):
+    """JAX's parameters at JAX's positions, and its snap of a memory
+    scale within 0.85-1.15 to exactly 1.0 (a card reporting 15.5 GiB keeps
+    the 16 pairs at 1080p)."""
+    from optical_flow_tpu.pipeline import prefetch as jprefetch
+    from optical_flow_tpu_torch.pipeline import prefetch
+
+    monkeypatch.setattr(jprefetch, "_device_hbm_bytes", lambda: int(gib * (1 << 30)))
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (0, int(gib * (1 << 30))))
+    for h, w in ((1080, 1920), (2160, 3840), (72, 129)):
+        assert (prefetch.pair_chunk_for(h, w, device="cuda:0")
+                == jprefetch.pair_chunk_for(h, w))
+    assert prefetch.pair_chunk_for(1080, 1920, 10 << 20, 3) == jprefetch.pair_chunk_for(
+        1080, 1920, 10 << 20, 3) == 3
+    assert prefetch.pair_chunk_for(96, 128, 1 << 20) == jprefetch.pair_chunk_for(
+        96, 128, 1 << 20) == 85
+
+
+def test_decode_prefetcher_takes_a_positional_depth(clip):
+    """JAX's third positional parameter is the decode-ahead depth, not the
+    transform."""
+    from optical_flow_tpu.pipeline.prefetch import DecodePrefetcher as JaxPrefetcher
+    from optical_flow_tpu_torch.pipeline.prefetch import DecodePrefetcher
+
+    positions = list(range(0, 40, 3))
+    got = list(DecodePrefetcher(clip, positions, 4, lambda f: f[..., 1], 2))
+    ref = list(JaxPrefetcher(clip, positions, 4, lambda f: f[..., 1], 2))
+    assert [p for p, _ in got] == [p for p, _ in ref] == positions
+    for (_, a), (_, b) in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_default_decode_workers_matches_jax(monkeypatch):
     from optical_flow_tpu.pipeline import prefetch as jprefetch
     from optical_flow_tpu_torch.pipeline import prefetch
