@@ -16,8 +16,10 @@ its occupancy, and at 3 to 159 taps, uint8 and f32, on 1080x1920, 37x1001
 and a frame within the radius; K4 at B=16 and B=1 on 1080x1920 and
 1079x1917 and on all-zero frames; K2 also at poly_n 7 and 11; K5b,
 box and Gaussian, at winsize 15 and at winsize 63, where its path runs
-it; K7, box and Gaussian, at every level, and equal to K2 -> K1 to the
-bit; K2 and K5b with ptxas's report too),
+it; K7, box and Gaussian, at every level and at L0 on a ±60 px flow,
+equal to K2 -> K1 to the bit, with the share of its M pixels that took
+the per-pixel path, both tile widths timed, ptxas's report and its
+occupancy; K2 and K5b with ptxas's report too),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
@@ -554,45 +556,108 @@ def kernel_phases(prev, nxt, cfg, stats) -> None:
     kernel_k6_phase(both, stats)
 
 
+def occupancy_k7(cfg, dev) -> dict:
+    """K7's dynamic shared memory per block and resident blocks per SM at
+    each tile width, uint8 with the pre-smooth (level 0) and f32, box and
+    Gaussian, at the config's winsize and poly_n."""
+    import ctypes
+    from optical_flow_tpu_torch.kernels import _build
+    from optical_flow_tpu_torch.kernels.update_gather import _k7_plan
+    f = _build.library("update_blur_poly").oft_update_blur_poly_occupancy
+    out = {}
+    for tile_w in (32, 64):
+        if _k7_plan(cfg.winsize, cfg.poly_n, tile_w) is None:
+            continue
+        for u8 in (1, 0):
+            for gauss in (0, 1):
+                blocks, smem = ctypes.c_int(), ctypes.c_int()
+                require(f(cfg.winsize // 2, cfg.poly_n, gauss, u8, u8, tile_w, dev.index,
+                          ctypes.byref(blocks), ctypes.byref(smem)) == 0,
+                        "K7 occupancy query")
+                out[f"{tile_w}x32_{'u8_pre' if u8 else 'f32'}_{'gaussian' if gauss else 'box'}"] = {
+                    "smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    return out
+
+
+def k7_paths(img0, img1, flow, winsize, gaussian, cfg, pre, tile_w=None) -> dict:
+    """How K7's M pixels took R1 on these inputs (the counted entry): the
+    counts and the share that took the per-pixel path."""
+    import torch
+    from optical_flow_tpu_torch.kernels.update_gather import update_blur_poly_counted
+    got, counts = update_blur_poly_counted(img0, img1, flow, winsize, gaussian,
+                                           cfg.poly_n, cfg.poly_sigma, pre, tile_w=tile_w)
+    torch.cuda.synchronize()
+    del got
+    return {**counts, "per_pixel_share": counts["per_pixel"] / max(counts["m_pixels"], 1)}
+
+
 def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
     """K7 against its plain version at every level of the 1080p B=16
     pyramid (L0: the uint8 frames with the pre-smooth; L1-L3: K3's f32
-    levels), box and Gaussian, on the random ±6 px flow; and against K2 ->
-    K1 on the same inputs (K2's R of the level, then K1): equal to the
-    bit."""
+    levels), box and Gaussian, on the random ±6 px flow, and at L0 on a
+    ±60 px one (`spread60_L0`, whose fetch boxes are cut: both paths);
+    and against K2 -> K1 on the same inputs (K2's R of the level, then
+    K1): equal to the bit.  Per case the share of M pixels on the
+    per-pixel path; with the box window, both tile widths timed per level
+    (`tile_ms`, the counted entry without counts), ptxas's report and the
+    occupancy."""
     import torch
-    from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
-                                                              update_blur_poly)
+    from optical_flow_tpu_torch.kernels.update_gather import (_k7_plan, update_blur,
+                                                              update_blur_poly,
+                                                              update_blur_poly_counted)
     from optical_flow_tpu_torch.models.farneback import core
     from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
 
     B = both.shape[0] // 2
     n, sigma = cfg.poly_n, cfg.poly_sigma
+    gen = torch.Generator(device=both.device).manual_seed(60)
+    spread = (torch.rand((B, 2) + both.shape[1:], generator=gen, device=both.device)
+              - 0.5) * 120.0
     for gaussian in (False, True):
-        cases, vs_k2_k1 = [], 0.0
+        cases, vs_k2_k1, shares, tile_ms = [], 0.0, {}, {}
         for lv in plan.levels:
             if lv.k == 0:
                 src, pre = both, gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
             else:
                 src, pre = imgs[lv.k], None
-            img0, img1, flow, R = src[:B], src[B:], flows[lv.k], Rs[lv.k]
-            got = update_blur_poly(img0, img1, flow, cfg.winsize, gaussian, n, sigma, pre)
-            ref = update_blur(R[:B], R[B:], flow, cfg.winsize, gaussian)
-            torch.cuda.synchronize()
-            vs_k2_k1 = max(vs_k2_k1, float((got - ref).abs().max()))
-            require(torch.equal(got, ref),
-                    f"K7 != K2 -> K1 at L{lv.k} (gaussian={gaussian}): max diff {vs_k2_k1}")
-            del got, ref
-            cases.append((
-                f"L{lv.k}",
-                lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
-                    update_blur_poly(a, b, f, cfg.winsize, g, n, sigma, p),
-                lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
-                    core.update_step_poly(a, b, f, cfg.winsize, g, n, sigma, p),
-                work_step_poly(img0, flow, cfg.winsize, gaussian, n, pre is not None), None))
+            img0, img1, R = src[:B], src[B:], Rs[lv.k]
+            level_cases = [(f"L{lv.k}", flows[lv.k])]
+            if lv.k == 0:
+                level_cases.append(("spread60_L0", spread))
+            for label, flow in level_cases:
+                got = update_blur_poly(img0, img1, flow, cfg.winsize, gaussian, n, sigma, pre)
+                ref = update_blur(R[:B], R[B:], flow, cfg.winsize, gaussian)
+                torch.cuda.synchronize()
+                vs_k2_k1 = max(vs_k2_k1, float((got - ref).abs().max()))
+                require(torch.equal(got, ref),
+                        f"K7 != K2 -> K1 at {label} (gaussian={gaussian}): max diff {vs_k2_k1}")
+                del got, ref
+                shares[label] = k7_paths(img0, img1, flow, cfg.winsize, gaussian, cfg, pre)
+                if not gaussian:
+                    tile_ms[label] = {
+                        f"{tw}x32": cuda_ms(lambda a=img0, b=img1, f=flow, p=pre, tw=tw:
+                                            update_blur_poly_counted(
+                                                a, b, f, cfg.winsize, False, n, sigma, p,
+                                                tile_w=tw, count=False), 10)
+                        for tw in (32, 64) if _k7_plan(cfg.winsize, n, tw)}
+                cases.append((
+                    label,
+                    lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
+                        update_blur_poly(a, b, f, cfg.winsize, g, n, sigma, p),
+                    lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
+                        core.update_step_poly(a, b, f, cfg.winsize, g, n, sigma, p),
+                    work_step_poly(img0, flow, cfg.winsize, gaussian, n, pre is not None),
+                    None))
         window = "gaussian" if gaussian else "box"
+        extra = ({"ptxas": ptxas_report("update_blur_poly"),
+                  "occupancy": occupancy_k7(cfg, both.device),
+                  "tile_ms": tile_ms,
+                  "tile_ms_sum": {t: sum(v[t] for k, v in tile_ms.items() if k.startswith("L"))
+                                  for t in tile_ms["L0"]}}
+                 if not gaussian else {})
         run_cases("K7", cases, stats, key="K7_gaussian" if gaussian else None,
-                  window=window, max_abs_err_vs_k2_k1=vs_k2_k1)
+                  window=window, max_abs_err_vs_k2_k1=vs_k2_k1, paths=shares, **extra)
+    del spread
     stats["K7"]["max_abs_err"] = max(stats["K7"]["max_abs_err"],
                                      stats["K7_gaussian"]["max_abs_err"])
 
@@ -601,8 +666,9 @@ def ab_k7_phase(name: str, h: int, w: int, batch: int, cfg, dev, power) -> None:
     """Per level of the pyramid, the level's `iterations` steps on the
     pyramid's own flow: K7 x iterations against K2 on both frames + K1 x
     iterations, equal to the bit, each timed twice in one call (K7 first,
-    then K2 + K1 first).  A level shape where K7 is faster in both runs
-    may go to K7 by default (`fused_iterate.use_fused_poly`)."""
+    then K2 + K1 first), with the share of K7's M pixels that took the
+    per-pixel path in the first step.  A level shape where K7 is faster
+    in both runs may go to K7 by default (`fused_iterate.use_fused_poly`)."""
     import torch
     from optical_flow_tpu_torch.kernels import fused_iterate
     from optical_flow_tpu_torch.kernels.polyexp import poly_exp
@@ -650,6 +716,7 @@ def ab_k7_phase(name: str, h: int, w: int, batch: int, cfg, dev, power) -> None:
         t_k7.append(cuda_ms(k7, reps))
         rows.append({"level": f"L{lv.k}", "shape": [batch, lv.height, lv.width],
                      "bit_equal": True, "k7_ms": t_k7, "k2_k1_ms": t_split,
+                     "paths_first_step": k7_paths(img0, img1, flow, win, gauss, cfg, pre),
                      "k7_faster_both_runs": all(a < b for a, b in zip(t_k7, t_split)),
                      "route": "K7" if fused_iterate.use_fused_poly(win, cfg.poly_n)
                      else "K2_K1"})

@@ -37,9 +37,13 @@ K7 (`csrc/update_blur_poly.cu`) replaces `fused_update_blur_store_poly`
 (`:1145`): K1 from the level images, with R0 and R1 expanded inside the
 step by K2's arithmetic (`csrc/polyexp.cuh`), so R never exists in device
 memory and the flow equals K2 -> K1 to the bit.  It trades K2's R traffic
-for arithmetic: R1 is derived from its (2n+1)^2 window at every M
-evaluation.  Its tile, K1's plus img0 staged with the expansion's halo,
-bounds winsize and poly_n: `k7_fits`.
+for arithmetic.  A block expands img0 separably over its M pixels (the
+32-row tile plus the window's halo), and img1's vertical correlations
+once over the bounding box of its fetch targets, cut to what its shared
+memory holds (`_k7_plan`); a target outside that box takes R1 from its
+own (2n+1)^2 window in device memory.  M on the tile plus its halo
+bounds winsize and poly_n: `k7_fits`.  `update_blur_poly_counted` also
+counts the M pixels of each path.
 """
 
 from __future__ import annotations
@@ -57,7 +61,9 @@ from optical_flow_tpu_torch.kernels.blur_solve import window_taps
 from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
 from optical_flow_tpu_torch.models.farneback import core
 
-_TILE = 32          # K7's output tile side, as TX and TY in update_blur_poly.cu
+_K7_ROWS = 32       # K7's output rows per block (TY in update_blur_poly.cu)
+_K7_TILE_W = 32     # its output columns per block by default (kDefaultTile)
+_K7_TWO_BLOCKS = 228 * 1024 // 2 - 1024   # a block's share at two an SM
 _STRIP = 32         # K1's strip width and rows built per pass (SW, G)
 _K1_MAX_WINSIZE = 61
 
@@ -89,15 +95,37 @@ def _rows_per_block(B: int, h: int, w: int, device: torch.device) -> int:
     return _STRIP
 
 
+def _k7_plan(winsize: int, poly_n: int, tile_w: int = _K7_TILE_W):
+    """K7's launch at `tile_w` output columns, as `plan` in
+    update_blur_poly.cu: (shared-memory bytes, floats of the region X
+    that the staged images, their vertical sums and the row sums take in
+    turn), or None where M on the tile plus its halo, the taps and the
+    larger of img0 staged with the expansion's halo and the row sums do
+    not fit a block.  Two blocks an SM where X holds img0's vertical sums
+    of every M row at once, else the whole 227 KB; X beyond that caps the
+    fetch box."""
+    m, n = winsize // 2, poly_n
+    mh, mw = _K7_ROWS + 2 * m, tile_w + 2 * m
+    ms = 5 * mh * mw + 2 * m + 1
+    u0 = (mh + 2 * n) * (mw + 2 * n)
+    hs = 5 * mh * tile_w
+    full = u0 + 3 * (mw + 2 * n + 3) * mh
+    if 4 * (ms + max(u0, hs)) > MAX_SMEM:
+        return None
+    nbytes = _K7_TWO_BLOCKS if 4 * (ms + max(full, hs)) <= _K7_TWO_BLOCKS else MAX_SMEM
+    return nbytes, nbytes // 4 - ms
+
+
+def _k7_tile(winsize: int, poly_n: int) -> int:
+    """The tile width a default launch takes (`default_tile`)."""
+    return _K7_TILE_W if _k7_plan(winsize, poly_n, _K7_TILE_W) else 32
+
+
 def k7_fits(winsize: int, poly_n: int) -> bool:
-    """Whether K7's shared memory (M on the tile plus its halo, img0
-    staged with the expansion's halo, aliased with the row sums, and the
-    window taps) fits one block, and poly_n its constants (<= 96): at
-    poly_n 5 any winsize up to 61, as K1."""
-    m = winsize // 2
-    mh = _TILE + 2 * m
-    staged = max((mh + 2 * poly_n) ** 2, 5 * mh * _TILE)
-    return 1 <= poly_n <= 96 and 4 * (5 * mh * mh + staged + 2 * m + 1) <= MAX_SMEM
+    """Whether K7 takes the window and the expansion: poly_n within its
+    constants (<= 96) and a plan at 32 columns, which holds at poly_n 5
+    and 7 for any winsize up to 61, as K1."""
+    return 1 <= poly_n <= 96 and _k7_plan(winsize, poly_n, 32) is not None
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,6 +142,15 @@ def _k7():
     f = _build.library("update_blur_poly").oft_update_blur_poly
     p, i = ctypes.c_void_p, ctypes.c_int
     f.argtypes = [p, p, i, p, p, i, i, i, i, i, p, ctypes.c_float, p, i, i, p]
+    f.restype = i
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_counted():
+    f = _build.library("update_blur_poly").oft_update_blur_poly_counted
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p, p, i, p, p, i, i, i, i, i, p, ctypes.c_float, p, i, i, p, i, p]
     f.restype = i
     return f
 
@@ -204,6 +241,36 @@ def update_blur_poly(img0: torch.Tensor, img1: torch.Tensor, flow: torch.Tensor,
             raise ValueError("out= is for CUDA tensors")
         return core.update_step_poly(img0, img1, flow, winsize, gaussian,
                                      poly_n, poly_sigma, pre_taps)
+    return _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma,
+                      pre_taps, out)
+
+
+def update_blur_poly_counted(img0: torch.Tensor, img1: torch.Tensor,
+                             flow: torch.Tensor, winsize: int, gaussian: bool,
+                             poly_n: int, poly_sigma: float, pre_taps=None,
+                             tile_w: int | None = None, count: bool = True):
+    """K7 on CUDA tensors at `tile_w` output columns (32 or 64; None: the
+    default launch's), and how its M pixels took R1: (new flow, {"per_pixel":
+    from img1 in device memory, "boxed": from the block's fetch box,
+    "m_pixels": every M pixel the blocks evaluated}, or None without
+    `count`).  A measurement entry (chip_smoke.py, the card tests); the
+    flow equals update_blur_poly's."""
+    if not on_cuda(flow):
+        raise ValueError("the fetch counts come from the kernel: CUDA tensors only")
+    counts = torch.zeros(3, dtype=torch.int64, device=flow.device) if count else None
+    out = _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma,
+                     pre_taps, None, tile_w or _k7_tile(winsize, poly_n), counts)
+    if counts is None:
+        return out, None
+    per_pixel, boxed, total = counts.tolist()
+    return out, {"per_pixel": per_pixel, "boxed": boxed, "m_pixels": total}
+
+
+def _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma, pre_taps,
+               out, tile_w=None, counts=None):
+    """update_blur_poly's launch on CUDA tensors: the default entry, or at
+    `tile_w` columns the counted one, adding to `counts` (a device int64
+    (3,)) where given."""
     dev = flow.device
     check(flow, "flow", dev, (torch.float32,), 4)
     B, two, h, w = flow.shape
@@ -224,11 +291,20 @@ def update_blur_poly(img0: torch.Tensor, img1: torch.Tensor, flow: torch.Tensor,
     out = output(out, flow.shape, dev, flow)
     if flow.numel() == 0:
         return out
-    rc = _k7()(img0.data_ptr(), img1.data_ptr(), int(img0.dtype == torch.uint8),
-               flow.data_ptr(), out.data_ptr(), B, h, w, winsize // 2, poly_n,
-               None if taps is None else taps.data_ptr(), scale, consts,
-               int(pre_taps is not None), dev.index,
-               torch.cuda.current_stream(dev).cuda_stream)
+    if tile_w is not None and (tile_w not in (32, 64)
+                               or _k7_plan(winsize, poly_n, tile_w) is None):
+        raise ValueError(f"winsize {winsize} with poly_n {poly_n} does not fit "
+                         f"a {tile_w}-column tile")
+    args = (img0.data_ptr(), img1.data_ptr(), int(img0.dtype == torch.uint8),
+            flow.data_ptr(), out.data_ptr(), B, h, w, winsize // 2, poly_n,
+            None if taps is None else taps.data_ptr(), scale, consts,
+            int(pre_taps is not None))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if tile_w is None:
+        rc = _k7()(*args, dev.index, stream)
+    else:
+        rc = _k7_counted()(*args, tile_w, None if counts is None else counts.data_ptr(),
+                           dev.index, stream)
     raise_on_error(rc, "update_blur_poly")
     LAUNCHES["K7"] += 1
     return out

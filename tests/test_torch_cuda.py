@@ -62,7 +62,8 @@ from optical_flow_tpu_torch.models.farneback.params import (build_plan,
                                                             gaussian_kernel)
 from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.oracle.synthetic import (motion_boundary_pair,
-                                                     smooth_texture_pair)
+                                                     smooth_texture_pair,
+                                                     vertical_jump_pair)
 from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
@@ -584,6 +585,78 @@ def test_update_blur_poly_kernel(dev, h, w, winsize, gaussian, kind):
 @pytest.mark.parametrize("poly_n", [3, 7])
 def test_update_blur_poly_kernel_poly_n(dev, poly_n, winsize, gaussian, kind):
     _k7_against_k2_k1(dev, 37, 53, winsize, gaussian, poly_n, kind)
+
+
+def _spread_flow(kind, B, h, w, seed):
+    """(B, 2, h, w) f32 flows that spread the fetch targets: "smooth" (a
+    block's box holds every target), "random60" (±60 px), "jump" (strips
+    of +40 and +104 rows, vertical_jump_pair's) or "borders" (targets from
+    2 px inside to 8 px past the nearest edge of each axis, clamped)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    flows = []
+    for b in range(B):
+        if kind == "smooth":
+            f = np.stack([2.5 * np.sin(yy / 9.0 + b) + 1.3, 1.7 * np.cos(xx / 7.0) - 0.6])
+        elif kind == "random60":
+            f = (rng.random((2, h, w)) - 0.5) * 120
+        elif kind == "jump":
+            f = (rng.random((2, h, w)) - 0.5) * 1.5
+            for r0f, r1f, dy in ((0.37, 0.445, 40), (0.46, 0.535, 104)):
+                f[1, int(h * r0f):int(h * r1f)] += dy
+        else:
+            push = 10 * rng.random((h, w)) - 2
+            f = np.stack([np.where(xx < w / 2, -(xx + push), (w - 1 - xx) + push),
+                          np.where(yy < h / 2, -(yy + push), (h - 1 - yy) + push)])
+        flows.append(f)
+    return torch.as_tensor(np.stack(flows).astype(np.float32))
+
+
+K7_SPREAD_WINDOWS = [(1, False), (15, False), (15, True), (61, False), (61, True)]
+
+
+@pytest.mark.parametrize("tile_w", [32, 64])
+@pytest.mark.parametrize("poly_n", [5, 7])
+@pytest.mark.parametrize("winsize,gaussian", K7_SPREAD_WINDOWS)
+@pytest.mark.parametrize("kind", ["u8_pre", "f32"])
+@pytest.mark.parametrize("flow_kind", ["smooth", "random60", "jump", "borders"])
+def test_update_blur_poly_fetch_box(dev, flow_kind, kind, winsize, gaussian, poly_n,
+                                    tile_w):
+    """K7 where the fetch targets spread beyond a block's box (±60 px, the
+    vertical jump), leave the image at every border, or stay in a box the
+    block stages whole: equal to K2 -> K1 to the bit, at both tile widths
+    (the counted entry) and through update_blur_poly; both paths taken
+    where ±60 px targets spread past the block's boxes."""
+    from optical_flow_tpu_torch.kernels.update_gather import (_k7_plan,
+                                                              update_blur_poly_counted)
+    if _k7_plan(winsize, poly_n, tile_w) is None:
+        pytest.skip(f"winsize {winsize} has no {tile_w}-column tile (32 takes it)")
+    h, w = (160, 130) if flow_kind == "jump" else (99, 130)
+    if flow_kind == "jump":
+        f1, f2 = vertical_jump_pair(h, w)
+    else:
+        f1, f2 = smooth_texture_pair(h, w, (1, 2))
+    img0, img1 = np.stack([f1, f2]), np.stack([f2, f1])
+    pre = PRE_TAPS if kind == "u8_pre" else None
+    if kind == "f32":
+        img0, img1 = (x.astype(np.float32) * 0.7 + 3.0 for x in (img0, img1))
+    img0, img1 = torch.as_tensor(img0).to(dev), torch.as_tensor(img1).to(dev)
+    flow = _spread_flow(flow_kind, 2, h, w, winsize * 10 + poly_n).to(dev)
+    sigma = 0.3 * poly_n
+    got, counts = update_blur_poly_counted(img0, img1, flow, winsize, gaussian,
+                                           poly_n, sigma, pre, tile_w=tile_w)
+    ref = update_blur(poly_exp(img0, poly_n, sigma, pre_taps=pre),
+                      poly_exp(img1, poly_n, sigma, pre_taps=pre), flow, winsize, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    assert torch.equal(update_blur_poly(img0, img1, flow, winsize, gaussian, poly_n,
+                                        sigma, pre), ref)
+    assert kernels.LAUNCHES["K7"] == 2
+    assert counts["per_pixel"] + counts["boxed"] <= counts["m_pixels"]
+    if flow_kind == "smooth" and winsize <= 15:
+        assert counts["per_pixel"] == 0 and counts["boxed"] > 0, counts
+    if flow_kind == "random60" and winsize == 15 and tile_w == 32:
+        assert counts["per_pixel"] > 0 and counts["boxed"] > 0, counts
 
 
 def test_update_blur_poly_rejects_what_it_does_not_take(dev):

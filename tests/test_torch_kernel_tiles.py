@@ -1,5 +1,5 @@
-"""The index maps of the redesigned K2, K5b, K6 and K4, emulated in numpy on
-the CPU.
+"""The index maps of the redesigned K2, K5b, K6, K4 and K7, emulated in numpy
+on the CPU.
 
 No CUDA kernel runs here, so these tests repeat what each kernel does with
 its indices, in numpy f32 with each chain in tap order, and hold the
@@ -27,6 +27,15 @@ bit, on small frames whose tiles and strips meet every border:
   kept on chip up to the cache's capacity and recomputed past it, the
   per-block (min, max) pairs folded after every block of the frame has
   published, then the map.
+- K7 (`csrc/update_blur_poly.cu`): per output tile, the unique M rows and
+  columns of the tile plus the window's halo, img0 staged over them plus
+  the expansion's halo, the fetch targets of the inside pixels reduced to
+  their bounding box and the anchor, R0's vertical sums in bands of the
+  rows the region holds (or R0 per pixel where not one row fits), the
+  box cut to the region (`fit_box`), img1 staged over it and its vertical
+  sums, R1 per M pixel from the box or from its own window (the
+  per-pixel path), M over R0, the out-of-image entries from their clamped
+  pixels, the window sum and the solve.
 """
 
 import numpy as np
@@ -36,10 +45,13 @@ import torch
 from optical_flow_tpu_torch.kernels import blur_solve as k5b
 from optical_flow_tpu_torch.kernels import gauss as k6
 from optical_flow_tpu_torch.kernels import polyexp as k2
+from optical_flow_tpu_torch.kernels import update_gather as k7
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.ops import colorize
 from optical_flow_tpu_torch.ops.color import hsv2bgr_planes
 from optical_flow_tpu_torch.ops.polar import fast_atan2_deg, magnitude
+from optical_flow_tpu_torch.oracle.synthetic import (smooth_texture_pair,
+                                                     vertical_jump_pair)
 from optical_flow_tpu_torch.models.farneback.params import (gaussian_kernel,
                                                             poly_exp_weights)
 
@@ -479,3 +491,331 @@ def test_k4_plan_keeps_a_1080p_frame_on_chip():
     assert (G, NG) == (264, 1) and slc <= cap and not vec
     G, NG, slc, cap, vec = k4_plan(2, 4320 * 7680)
     assert slc > cap
+
+
+def _staged_image(img, pre_taps):
+    """staged_value over a whole (H, W) frame: the pixels as f32, or the
+    3-tap REFLECT_101 pre-smooth (the vertical taps, then the horizontal)."""
+    H, W = img.shape
+    x = img.astype(f32)
+    if pre_taps is None:
+        return x
+    rows = [[_reflect101(y + d, H) for y in range(H)] for d in (-1, 1)]
+    P = _chain(pre_taps, [x[rows[0]], x, x[rows[1]]])
+    cols = [[_reflect101(c + d, W) for c in range(W)] for d in (-1, 1)]
+    return _chain(pre_taps, [P[:, cols[0]], P, P[:, cols[1]]])
+
+
+def _combine(v0, v1, v2, h, w):
+    """The six horizontal correlations (h(t, v) gives one) and the combine:
+    R (5, ...) in polyexp.cuh's order."""
+    g, xg, xxg, ig11, ig03, ig33, ig55 = w
+    b1, b2, b3 = h(g, v0), h(xg, v0), h(g, v1)
+    b4, b5, b6 = h(xxg, v0), h(g, v2), h(xg, v1)
+    return np.stack([b3 * ig11, b2 * ig11, b1 * ig03 + b5 * ig33,
+                     b1 * ig03 + b4 * ig33, b6 * ig55])
+
+
+def k7_fit_box(lo_y, hi_y, lo_x, hi_x, ay, ax, xc, n):
+    """update_blur_poly.cu's fit_box: (y0, x0, h, w) of the fetch box."""
+    if hi_y < lo_y or hi_x < lo_x:
+        return 0, 0, 0, 0
+
+    def floats(bh, bw):
+        return (bw + 2 * n) * (4 * bh + 2 * n)
+
+    eh, ew = hi_y - lo_y + 1, hi_x - lo_x + 1
+    bh, bw = eh, ew
+    if floats(bh, bw) > xc:
+        s = 0
+        while floats(s + 1, s + 1) <= xc:
+            s += 1
+        bh, bw = min(eh, s), min(ew, s)
+        if bh < eh:
+            t = xc // (bw + 2 * n) - 2 * n
+            bh = min(eh, t // 4) if t > 0 else 0
+        elif bw < ew:
+            t = xc // (4 * bh + 2 * n) - 2 * n
+            bw = min(ew, t) if t > 0 else 0
+    if bh <= 0 or bw <= 0:
+        return 0, 0, 0, 0
+    y0 = lo_y if bh == eh else min(max(ay - bh // 2, lo_y), hi_y - bh + 1)
+    x0 = lo_x if bw == ew else min(max(ax - bw // 2, lo_x), hi_x - bw + 1)
+    return y0, x0, bh, bw
+
+
+K7_PASSES, K7_MIN_BOXED = 4, 64     # kPasses and kMinBoxed in the kernel
+
+
+def emulate_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma,
+               pre_taps, tx, ty, xc):
+    """K7's blocks on one frame pair, (H, W) each, flow (2, H, W) f32, a
+    tx x ty output tile and a region X of xc floats -> (new flow (2, H, W)
+    f32, {"per_pixel", "boxed", "m_pixels"}, the blocks' fetch boxes)."""
+    n, m = poly_n, winsize // 2
+    nt = 2 * n + 1
+    g, xg, xxg, ig11, ig03, ig33, ig55 = poly_exp_weights(n, poly_sigma)
+    w = (g, xg, xxg) + tuple(f32(v) for v in (ig11, ig03, ig33, ig55))
+    H, W = img0.shape
+    mh, mw = ty + 2 * m, tx + 2 * m
+    assert xc >= max((mh + 2 * n) * (mw + 2 * n), 5 * mh * tx)
+    xcb = xc - 8 - -(-mh * mw // 32)     # X less the pass bits and bounds
+    S0, S1 = _staged_image(img0, pre_taps), _staged_image(img1, pre_taps)
+    taps = (core.gaussian_window_kernel(winsize) if gaussian
+            else np.ones(2 * m + 1, f32))
+    scale = f32(1.0) if gaussian else f32(1.0 / (winsize * winsize))
+    sc_field = core.border_scale_field(H, W)
+    out = np.full((2, H, W), np.nan, f32)
+    counts = {"per_pixel": 0, "boxed": 0, "m_pixels": 0}
+    boxes = []          # per block, its passes' fetch boxes
+
+    def staged(S, ys, xs, rows, cols):
+        return S[np.ix_(np.clip(ys + np.arange(rows), 0, H - 1),
+                        np.clip(xs + np.arange(cols), 0, W - 1))]
+
+    def vsums(U, i0, rows):
+        return [_chain(t, [U[i0 + q:i0 + q + rows] for q in range(nt)])
+                for t in (g, xg, xxg)]
+
+    def wsum(values):
+        return _chain(taps, values) if gaussian else sum(values[1:], values[0])
+
+    for y0 in range(0, H, ty):
+        for x0 in range(0, W, tx):
+            ylo, yhi = max(y0 - m, 0), min(y0 + ty + m - 1, H - 1)
+            xlo, xhi = max(x0 - m, 0), min(x0 + tx + m - 1, W - 1)
+            nr, nc = yhi - ylo + 1, xhi - xlo + 1
+            ys, xs = np.mgrid[ylo:yhi + 1, xlo:xhi + 1]
+            # 1. img0 staged; the inside targets' bounds and the anchor
+            us0 = nc + 2 * n
+            U0 = staged(S0, ylo - n, xlo - n, nr + 2 * n, us0)
+            dx, dy = flow[0, ys, xs], flow[1, ys, xs]
+            fx = np.rint(xs.astype(f32) + dx)
+            fy = np.rint(ys.astype(f32) + dy)
+            inside = (fx >= 0) & (fx <= W - 1) & (fy >= 0) & (fy <= H - 1)
+            xi = np.clip(fx, 0, W - 1).astype(np.int64)
+            yi = np.clip(fy, 0, H - 1).astype(np.int64)
+            cy, cx = min(y0 + ty // 2, yhi), min(x0 + tx // 2, xhi)
+            if inside.any():
+                lo_y, hi_y = int(yi[inside].min()), int(yi[inside].max())
+                lo_x, hi_x = int(xi[inside].min()), int(xi[inside].max())
+                if inside[cy - ylo, cx - xlo]:
+                    ay, ax = int(yi[cy - ylo, cx - xlo]), int(xi[cy - ylo, cx - xlo])
+                else:
+                    ay, ax = (lo_y + hi_y) // 2, (lo_x + hi_x) // 2
+            else:
+                lo_y, hi_y, lo_x, hi_x, ay, ax = 1, 0, 1, 0, 0, 0
+            box = k7_fit_box(lo_y, hi_y, lo_x, hi_x, ay, ax, xcb, n)
+            boxes.append([])
+            # 2. R0 on the unique pixels, in bands of rb rows
+            u0, vs0 = (nr + 2 * n) * us0, us0 + 3
+            rb = min(nr, (xc - u0) // (3 * vs0))
+            R0 = np.full((5, nr, nc), np.nan, f32)
+            if rb >= 1:
+                for b0 in range(0, nr, rb):
+                    rows = min(rb, nr - b0)
+                    v = vsums(U0, b0, rows)
+                    R0[:, b0:b0 + rows] = _combine(
+                        *v, lambda t, r: _chain(t, [r[:, k:k + nc] for k in range(nt)]), w)
+            else:
+                R0 = _combine(*vsums(U0, 0, nr),
+                              lambda t, r: _chain(t, [r[:, k:k + nc] for k in range(nt)]), w)
+            # 3. passes: img1 staged over the pass's box, its vertical
+            # sums, R1 of the targets in it; the targets left bound the
+            # next box (at their top-left corner); a pass without a box
+            # takes R1 of every target left from its own window
+            d = np.zeros((5, nr, nc), f32)
+            done = ~inside
+            for npass in range(K7_PASSES):
+                by0, bx0, bh, bw = box
+                if bh == 0:
+                    per_pixel = inside & ~done
+                    py, px = yi[per_pixel], xi[per_pixel]
+                    cols = [np.clip(px - n + j, 0, W - 1) for j in range(nt)]
+                    win = [[S1[np.clip(py - n + k, 0, H - 1), cols[j]] for k in range(nt)]
+                           for j in range(nt)]
+                    v = [[_chain(t, win[j]) for j in range(nt)] for t in (g, xg, xxg)]
+                    if per_pixel.any():
+                        d[:, per_pixel] = _combine(*v, lambda t, r: _chain(t, r), w)
+                    counts["per_pixel"] += int(per_pixel.sum())
+                    break
+                boxes[-1].append(box)
+                assert (bw + 2 * n) * (4 * bh + 2 * n) <= xcb
+                boxed = (~done & (yi >= by0) & (yi < by0 + bh)
+                         & (xi >= bx0) & (xi < bx0 + bw))
+                if boxed.any():
+                    V1 = vsums(staged(S1, by0 - n, bx0 - n, bh + 2 * n, bw + 2 * n), 0, bh)
+                    ri, ci = yi[boxed] - by0, xi[boxed] - bx0
+                    d[:, boxed] = _combine(
+                        *V1, lambda t, r: _chain(t, [r[ri, ci + k] for k in range(nt)]), w)
+                counts["boxed"] += int(boxed.sum())
+                done |= boxed
+                rest = ~done
+                if not rest.any():
+                    break
+                if rest.sum() >= K7_MIN_BOXED and npass + 2 < K7_PASSES:
+                    ly, lx = int(yi[rest].min()), int(xi[rest].min())
+                    box = k7_fit_box(ly, int(yi[rest].max()), lx, int(xi[rest].max()),
+                                     ly, lx, xcb, n)
+                else:
+                    box = (0, 0, 0, 0)
+            counts["m_pixels"] += nr * nc
+            # 4. M over R0 (update_matrices.cuh:assemble), then the entries
+            # outside the image from their clamped pixels
+            half, quarter, zero = f32(0.5), f32(0.25), f32(0.0)
+            r2 = np.where(inside, d[0], zero)
+            r3 = np.where(inside, d[1], zero)
+            r4 = np.where(inside, (R0[2] + d[2]) * half, R0[2])
+            r5 = np.where(inside, (R0[3] + d[3]) * half, R0[3])
+            r6 = np.where(inside, (R0[4] + d[4]) * quarter, R0[4] * half)
+            r2 = (R0[0] - r2) * half + (r4 * dy + r6 * dx)
+            r3 = (R0[1] - r3) * half + (r6 * dy + r5 * dx)
+            sc = sc_field[ys, xs]
+            r2, r3, r4, r5, r6 = (r * sc for r in (r2, r3, r4, r5, r6))
+            M = np.stack([r4 * r4 + r6 * r6, (r4 + r5) * r6, r5 * r5 + r6 * r6,
+                          r4 * r2 + r6 * r3, r6 * r2 + r5 * r3])
+            Ms = M[:, np.clip(y0 - m + np.arange(mh), 0, H - 1) - ylo][
+                :, :, np.clip(x0 - m + np.arange(mw), 0, W - 1) - xlo]
+            # 5. the window sums (horizontal, then vertical) and the solve
+            Hs = wsum([Ms[:, :, i:i + tx] for i in range(2 * m + 1)])
+            s = wsum([Hs[:, i:i + ty] for i in range(2 * m + 1)]) * scale
+            idet = f32(1.0) / (s[0] * s[2] - s[1] * s[1] + f32(1e-3))
+            hh, ww = min(ty, H - y0), min(tx, W - x0)
+            out[0, y0:y0 + hh, x0:x0 + ww] = ((s[0] * s[4] - s[1] * s[3]) * idet)[:hh, :ww]
+            out[1, y0:y0 + hh, x0:x0 + ww] = ((s[2] * s[3] - s[1] * s[4]) * idet)[:hh, :ww]
+    return out, counts, boxes
+
+
+def _k7_flow(kind, h, w, rng):
+    """A (2, h, w) f32 flow: smooth, random ±60 px, the vertical jump's
+    strips (+40 and +104 rows) or one that sends the targets to all four
+    borders, most past them (clamped)."""
+    if kind == "smooth":
+        yy, xx = np.mgrid[0:h, 0:w].astype(f32)
+        return np.stack([2.5 * np.sin(yy / 9.0) + 1.3, 1.7 * np.cos(xx / 7.0) - 0.6]).astype(f32)
+    if kind == "random60":
+        return ((rng.random((2, h, w)) - 0.5) * 120).astype(f32)
+    if kind == "jump":
+        flow = ((rng.random((2, h, w)) - 0.5) * 1.5).astype(f32)
+        for r0f, r1f, dy in ((0.37, 0.445, 40), (0.46, 0.535, 104)):
+            flow[1, int(h * r0f):int(h * r1f)] += dy
+        return flow
+    # "borders": every target sent to between 2 px inside and 8 px past
+    # the nearest edge of each axis
+    yy, xx = np.mgrid[0:h, 0:w].astype(f32)
+    push = (10 * rng.random((h, w)) - 2).astype(f32)
+    fy = np.where(yy < h / 2, -(yy + push), (h - 1 - yy) + push)
+    fx = np.where(xx < w / 2, -(xx + push), (w - 1 - xx) + push)
+    return np.stack([fx, fy]).astype(f32)
+
+
+def _k7_inputs(kind, h, w, u8, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "jump":
+        f1, f2 = vertical_jump_pair(h, w)
+    else:
+        f1, f2 = smooth_texture_pair(h, w, (1, 2))
+    if not u8:
+        f1, f2 = (f.astype(f32) * f32(0.7) + f32(3.0) for f in (f1, f2))
+    return f1, f2, _k7_flow(kind, h, w, rng)
+
+
+K7_CASES = [
+    # (h, w, flow, winsize, gaussian, poly_n, uint8 + pre-smooth, tile, xc)
+    # xc "plan": update_gather._k7_plan's at 32 columns; "big": every box
+    # fits; an int: the region cut so that boxes and bands are cut too
+    (37, 53, "smooth", 15, False, 5, True, (32, 32), "plan"),
+    (33, 130, "smooth", 15, True, 5, True, (32, 32), "plan"),
+    (37, 53, "random60", 15, False, 5, True, (32, 32), "plan"),
+    (33, 130, "random60", 15, True, 5, False, (32, 32), "plan"),
+    (160, 70, "jump", 15, False, 5, True, (32, 32), "plan"),
+    (160, 70, "jump", 9, True, 5, True, (16, 16), 4000),
+    (45, 66, "borders", 15, False, 5, True, (32, 32), "plan"),
+    (45, 66, "borders", 7, True, 3, False, (8, 8), 1200),
+    (5, 7, "random60", 3, False, 5, True, (32, 32), "plan"),
+    (5, 7, "smooth", 15, True, 5, False, (32, 32), "plan"),
+    (37, 53, "random60", 61, False, 5, True, (32, 32), "plan"),
+    (37, 53, "smooth", 5, False, 7, True, (8, 16), "big"),
+    (37, 53, "random60", 5, True, 7, False, (8, 8), 900),
+    (33, 130, "random60", 1, False, 5, True, (16, 8), 650),
+    (40, 37, "smooth", 3, False, 6, True, (4, 4), 330),
+    (37, 53, "borders", 3, True, 6, False, (4, 4), 330),
+]
+
+
+@pytest.mark.parametrize("h,w,kind,winsize,gaussian,poly_n,u8,tile,xc", K7_CASES)
+def test_k7_blocks_equal_plain(h, w, kind, winsize, gaussian, poly_n, u8, tile, xc):
+    """Smooth, ±60 px, vertical-jump and border-crossing flows, frames
+    smaller than a tile and odd sizes, the real plan and regions cut so
+    that boxes are cut, R0 runs in bands or per pixel: every block's staged
+    spans, fetch box and split of M pixels give the plain version's flow
+    to the bit."""
+    tx, ty = tile
+    pre = gaussian_kernel(3, 0.0) if u8 else None
+    img0, img1, flow = _k7_inputs(kind, h, w, u8, h * w + winsize)
+    if xc == "plan":
+        xc = k7._k7_plan(winsize, poly_n, tx)[1]
+    elif xc == "big":
+        xc = 10 ** 6
+    got, counts, _ = emulate_k7(img0, img1, flow, winsize, gaussian, poly_n, 1.2,
+                                pre, tx, ty, xc)
+    ref = core.update_step_poly(torch.as_tensor(img0)[None], torch.as_tensor(img1)[None],
+                                torch.as_tensor(flow)[None], winsize, gaussian,
+                                poly_n, 1.2, pre)[0].numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert counts["per_pixel"] + counts["boxed"] <= counts["m_pixels"]
+
+
+def _k7_paths(kind, h, w, winsize, poly_n, tile, xc):
+    img0, img1, flow = _k7_inputs(kind, h, w, True, h * w + winsize)
+    return emulate_k7(img0, img1, flow, winsize, False, poly_n, 1.2,
+                      gaussian_kernel(3, 0.0), *tile, xc)[1:]
+
+
+def test_k7_split_of_the_m_pixels():
+    """Which path the M pixels take under the real plan (32 x 32, winsize
+    15, poly_n 5): a smooth flow and a ±6 px one keep every fetch in the
+    block's first box; the vertical jump's strips need a second; ±60 px
+    random flows cut three boxes and leave the rest to the per-pixel
+    path; targets past the borders need no R1."""
+    xc = k7._k7_plan(15, 5, 32)[1]
+    for kind, amp in (("smooth", None), ("random6", 6)):
+        h, w = 96, 130
+        img0, img1, _ = _k7_inputs("smooth", h, w, True, 1)
+        flow = (_k7_flow("smooth", h, w, None) if amp is None else
+                ((np.random.default_rng(2).random((2, h, w)) - 0.5) * 2 * amp).astype(f32))
+        counts, boxes = emulate_k7(img0, img1, flow, 15, False, 5, 1.2,
+                                   gaussian_kernel(3, 0.0), 32, 32, xc)[1:]
+        assert counts["per_pixel"] == 0 and counts["boxed"] > 0, kind
+        # one box a block: the block's M span plus about 12 px at ±6 px
+        assert all(len(b) == 1 and b[0][2] <= 46 + 13 and b[0][3] <= 46 + 13
+                   for b in boxes)
+    # the vertical jump: the strips' blocks take a second box, so no
+    # target is left to the per-pixel path
+    counts, boxes = _k7_paths("jump", 160, 130, 15, 5, (32, 32), xc)
+    assert counts["per_pixel"] == 0 and max(len(b) for b in boxes) == 2
+    # ±60 px: three boxes, then the per-pixel path
+    counts, boxes = _k7_paths("random60", 160, 130, 15, 5, (32, 32), xc)
+    assert counts["per_pixel"] > 0 and counts["boxed"] > 0
+    assert max(len(b) for b in boxes) == 3
+    assert all((bw + 10) * (4 * bh + 10) <= xc for b in boxes for _, _, bh, bw in b)
+    counts, _ = _k7_paths("borders", 45, 66, 15, 5, (32, 32), xc)
+    assert counts["boxed"] + counts["per_pixel"] < counts["m_pixels"]
+
+
+def test_k7_fit_box_cuts_to_the_region():
+    """The bounding box where it fits; else the largest square grown along
+    the axis still cut, placed around the anchor inside the bounds."""
+    n, xc = 5, 18333
+    assert k7_fit_box(10, 57, 20, 77, 30, 40, xc, n) == (10, 20, 48, 58)
+    # a tall bounding box (a vertical jump): the width kept, rows cut
+    y0, x0, bh, bw = k7_fit_box(0, 199, 100, 145, 150, 120, xc, n)
+    assert bw == 46 and (bw + 10) * (4 * bh + 10) <= xc < (bw + 10) * (4 * bh + 14)
+    assert y0 == 150 - bh // 2 and x0 == 100
+    # anchored at the bottom edge of the bounds
+    assert k7_fit_box(0, 199, 100, 145, 199, 120, xc, n)[0] == 200 - bh
+    # both axes cut: a square, then the rows grown with its width
+    y0, x0, bh, bw = k7_fit_box(0, 299, 0, 299, 0, 299, xc, n)
+    assert (y0, x0 + bw) == (0, 300) and bw == 61 < bh
+    assert k7_fit_box(5, 4, 0, 0, 0, 0, xc, n) == (0, 0, 0, 0)
+    assert k7_fit_box(0, 0, 0, 0, 0, 0, 10, n) == (0, 0, 0, 0)

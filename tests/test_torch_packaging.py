@@ -25,7 +25,7 @@ from pathlib import Path
 
 import pytest
 
-from optical_flow_tpu_torch.kernels import polyexp
+from optical_flow_tpu_torch.kernels import polyexp, update_gather
 from optical_flow_tpu_torch.kernels.blur_solve import k5b_smem, k5b_strip_fits
 from optical_flow_tpu_torch.kernels.gauss_resize import _tile, k3_fits
 from optical_flow_tpu_torch.kernels.update_gather import k1_fits, k1_smem
@@ -213,6 +213,48 @@ K2_TILES = {
 @pytest.mark.parametrize("key", sorted(K2_TILES))
 def test_k2_tile(key):
     assert polyexp._tile(*key) == K2_TILES[key]
+
+
+# K7's launch per (winsize, poly_n, tile width): (shared-memory bytes, floats
+# of the region the staged images, their vertical sums and the row sums
+# share), as `plan` in csrc/update_blur_poly.cu; None: no launch
+K7_PLANS = {
+    (15, 5, 32): (115712, 18333),     # two blocks an SM, 1080p's window
+    (15, 5, 64): (232448, 40157),
+    (1, 5, 32): (115712, 23807),
+    (3, 7, 32): (115712, 23145),
+    (21, 5, 32): (115712, 15387),
+    (23, 5, 32): (232448, 43509),     # R0's sums of every row miss the share
+    (61, 5, 32): (232448, 15731),     # R0 in bands
+    (61, 7, 32): (232448, 15731),
+    (61, 5, 64): None,
+    (3, 96, 32): (232448, 52329),
+    (63, 5, 32): None,
+}
+
+
+@pytest.mark.parametrize("key", sorted(K7_PLANS, key=str))
+def test_k7_plan(key):
+    assert update_gather._k7_plan(*key) == K7_PLANS[key]
+
+
+def test_k7_takes_what_it_took_before_its_redesign():
+    """k7_fits: poly_n 1..96 within the constants and a plan at 32
+    columns, the same (winsize, poly_n) as the former kernel's formula
+    (M on the tile and halo, the staged img0 or the row sums, the taps):
+    every winsize up to 61 at poly_n 5 and 7."""
+    def former(winsize, poly_n):
+        m = winsize // 2
+        mh = 32 + 2 * m
+        staged = max((mh + 2 * poly_n) ** 2, 5 * mh * 32)
+        return 1 <= poly_n <= 96 and 4 * (5 * mh * mh + staged + 2 * m + 1) <= MAX_SMEM
+
+    for winsize in range(1, 130):
+        for poly_n in range(0, 98):
+            assert update_gather.k7_fits(winsize, poly_n) == former(winsize, poly_n)
+    assert all(update_gather.k7_fits(w, n) for w in range(1, 62) for n in (5, 7))
+    assert not update_gather.k7_fits(63, 5)
+    assert update_gather._k7_tile(15, 5) == 32 and update_gather._k7_tile(61, 7) == 32
 
 
 def test_k5b_strip_takes_every_winsize_up_to_261():
