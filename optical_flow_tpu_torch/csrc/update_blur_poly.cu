@@ -7,28 +7,32 @@
 // update_flow_fused_poly): K1 (update_blur.cu) with R0 and R1 expanded
 // from img0 and img1 (uint8 with the 3-tap pre-smooth at level 0, f32 at
 // the levels k > 0).  A block of TX x 8 threads takes a TX x 32 output
-// tile (TX 32 or 64).  M is needed on the tile plus the window's m-pixel
-// halo; its in-image part is the block's unique rows ylo..yhi and columns
+// tile: TX 64 by default where its plan fits (winsize <= 37 at poly_n 5),
+// else 32.  M is needed on the tile plus the window's m-pixel halo; its
+// in-image part is the block's unique rows ylo..yhi and columns
 // xlo..xhi, and an M entry outside the image is M at the clamped pixel
 // (the window's replicate border).  Per block:
 //   1. stage img0 (pre-smoothed) over the unique rows and columns plus
-//      the expansion's n-pixel halo, clamped into the image; read the
-//      flow of the unique pixels and reduce the fetch targets of those
-//      whose rounded target is inside the image (the others use no R1)
-//      to their bounding box;
+//      the expansion's n-pixel halo, clamped into the image (the raw
+//      band loaded once, many loads a thread in flight, the pre-smooth
+//      in shared memory); read the flow of the unique pixels and reduce
+//      the fetch targets of those whose rounded target is inside the
+//      image (the others use no R1) to their bounding box;
 //   2. R0 separably: the three vertical correlations of each unique row
 //      at every staged column (polyexp.cuh:vertical_run, four rows a
 //      thread), then the six horizontal ones, four columns a thread
 //      (horizontal_run), combined into R0 on M's place in shared memory;
 //      in bands of rows where the vertical sums of all rows do not fit;
-//   3. R1 over the fetch box: the box is cut to what the region holds
+//   3. R1 over a fetch box: the box is cut to what the region holds
 //      (fit_box: the whole bounding box when it fits, else a box around
 //      the tile centre's target), img1 staged over it plus the n halo,
 //      and its vertical correlations taken once;
-//   4. M per unique pixel (update_matrices.cuh, shared with K1 and K5a),
-//      overwriting R0 in place: R1 at a target inside the box from its
-//      2n + 1 vertical sums there (the horizontal correlations and the
-//      combine), at a target outside it from img1 in device memory, its
+//   4. M per unique pixel whose target lies in the box, or that needs no
+//      R1 (update_matrices.cuh, shared with K1 and K5a), overwriting R0
+//      in place, R1 from the 2n + 1 vertical sums at the target (the
+//      horizontal correlations and the combine); the targets left bound
+//      the next box, and 3-4 repeat, up to three boxes; a pass without a
+//      box takes R1 of every target left from img1 in device memory, its
 //      own (2n+1)^2 window (polyexp.cuh:expand_at): two exact paths;
 //      then the out-of-image entries copied from their clamped pixels;
 //   5. the window sum and solve of K1 (window_solve.cuh).
@@ -40,20 +44,24 @@
 // its replay of spilled frames through the unfused path) have no
 // counterpart.
 //
-// What bounds it: arithmetic.  It reads the two level images and the
-// flow and writes the flow (10 B/px at level 0, 16 at k > 0); the least
-// work is K2's on both images plus K1's, 649 operations a pixel at level
-// 0 (chip_smoke.py:work_step_poly).  The block expands img0 over its
-// (32 + 2m) x (TX + 2m) M pixels, 2.1 of them per output at winsize 15
-// and TX 32, and img1's vertical sums over the fetch box; a horizontal
-// correlation per M pixel.  The former kernel derived R0 and R1 per M
-// pixel from their (2n+1)^2 windows, about 8,800 operations per output
-// at level 0.
+// What bounds it: the least work is arithmetic, K2's on both images plus
+// K1's, 649 operations a pixel at level 0 (chip_smoke.py:work_step_poly),
+// against 10 B/px of images and flow at level 0.  The block expands img0
+// over its (32 + 2m) x (TX + 2m) M pixels (1.75 per output at winsize 15
+// and TX 64; 2.07 at TX 32) and img1's vertical sums over the fetch box,
+// and takes a horizontal correlation per M pixel: about 1,300 operations
+// per output.  The former kernel derived R0 and R1 per M pixel from their
+// (2n+1)^2 windows, about 8,800.  What holds it above that is latency: one
+// block of 16 warps an SM at TX 64 (two of 8 at TX 32), with the block's
+// phases between barriers; a clock64 breakdown at 1080p level 0 puts
+// about a fifth of a block's time in step 1's loads, a fifth in step 3,
+// a quarter in step 4 and a fifth in step 5 (PERF.md).
 //
 // Shared memory (floats; kernels/update_gather.py:_k7_plan mirrors
 // `plan`): M [5][32 + 2m][TX + 2m], the window taps, then one region X
 // used in turn by the staged img0 and its vertical sums, the staged img1
-// and its vertical sums, and the window's row sums.  A launch takes the
+// and its vertical sums, and the window's row sums; X's last floats hold
+// a bit per M pixel done and the bounds a pass leaves.  A launch takes the
 // two-blocks-an-SM share where R0's sums fit it in one band, else the
 // whole 227 KB; what X holds beyond R0's needs caps the fetch box.
 // Where X cannot hold one row of R0's vertical sums (windows of far more
@@ -74,7 +82,7 @@ using oft::PolyConsts;
 
 constexpr int TY = 32;                        // output rows per block
 constexpr int BY = 8;                         // thread rows per block
-constexpr int kDefaultTile = 32;              // output columns per block
+constexpr int kDefaultTile = 64;              // output columns per block
 constexpr int kSmemPerSM = 228 * 1024;
 constexpr int kTwoBlocks = kSmemPerSM / 2 - 1024;   // 1 KB reserved a block
 constexpr int kMaxSmem = 227 * 1024;
@@ -167,33 +175,72 @@ struct Walk {
   }
 };
 
+// B[j * bcols + k] = img[row(j)][col(k)] for a brows x bcols band, kLoads
+// loads a thread in flight (a 1080p block's band in one round trip).
+constexpr int kLoads = 16;
+
+template <typename T, typename S, typename Row, typename Col>
+__device__ __forceinline__ void load_band(const T* __restrict__ img, int W, int brows,
+                                          int bcols, Row row, Col col, S* B, int tid,
+                                          int nth) {
+  const int total = brows * bcols;
+  for (int e0 = tid; e0 < total; e0 += kLoads * nth) {
+    T v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * nth;
+      if (e < total) {
+        const int j = e / bcols;
+        v[u] = img[static_cast<long long>(row(j)) * W + col(e - j * bcols)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (e0 + u * nth < total) B[e0 + u * nth] = static_cast<S>(v[u]);
+  }
+}
+
 // Stage rows x cols values: U[r * cols + q] = the staged value at
-// (clamp(ys + r), clamp(xs + q)).  With the pre-smooth, where `room`
-// floats at P hold them, its vertical taps first, once per staged row
-// and unique column plus the reflected ring (P), then the horizontal
-// ones from P, in staged_value's order; else staged_value per entry.
-// Synchronises the block in the first case; the caller synchronises
+// (clamp(ys + r), clamp(xs + q)).  Without the pre-smooth, the pixels.
+// With it, where `room` floats at P hold them: the raw band of the unique
+// rows and columns plus the reflected ring (R, after P), then the
+// vertical taps once per unique row and band column (P), then the
+// horizontal ones, in staged_value's order; else staged_value per entry.
+// Synchronises the block in the second case; the caller synchronises
 // after it.
 template <typename T, bool PRE>
 __device__ __forceinline__ void stage(const T* __restrict__ img, int ys, int xs,
                                       int rows, int cols, int H, int W,
                                       const PolyConsts& c, float* U, float* P,
                                       int room, int tid, int nth) {
+  if (!PRE) {
+    load_band(img, W, rows, cols, [&](int r) { return oft::clampi(ys + r, 0, H - 1); },
+              [&](int q) { return oft::clampi(xs + q, 0, W - 1); }, U, tid, nth);
+    return;
+  }
+  const int cy0 = oft::clampi(ys, 0, H - 1);
+  const int ny = oft::clampi(ys + rows - 1, 0, H - 1) - cy0 + 1;
   const int cx0 = oft::clampi(xs, 0, W - 1);
   const int pw = oft::clampi(xs + cols - 1, 0, W - 1) - cx0 + 3;
-  if (PRE && rows * pw <= room) {
-    // P[r][k]: image column reflect101(cx0 - 1 + k)
-    for (Walk it(tid, nth, pw); it.r < rows; it.next()) {
-      const int y = oft::clampi(ys + it.r, 0, H - 1);
-      const int x = oft::reflect101(cx0 - 1 + it.q, W);
-      float a = c.pre[0] * oft::load(img, static_cast<long long>(oft::reflect101(y - 1, H)) * W + x);
-      a = a + c.pre[1] * oft::load(img, static_cast<long long>(y) * W + x);
-      a = a + c.pre[2] * oft::load(img, static_cast<long long>(oft::reflect101(y + 1, H)) * W + x);
+  const int p_floats = ny * pw;
+  if (p_floats + ((ny + 2) * pw * static_cast<int>(sizeof(T)) + 3) / 4 <= room) {
+    // R row j, column k: image row reflect101(cy0 - 1 + j), column
+    // reflect101(cx0 - 1 + k); P row i: image row cy0 + i
+    T* R = reinterpret_cast<T*>(P + p_floats);
+    load_band(img, W, ny + 2, pw, [&](int j) { return oft::reflect101(cy0 - 1 + j, H); },
+              [&](int k) { return oft::reflect101(cx0 - 1 + k, W); }, R, tid, nth);
+    __syncthreads();
+    for (Walk it(tid, nth, pw); it.r < ny; it.next()) {
+      const T* b = R + it.r * pw + it.q;
+      float a = c.pre[0] * static_cast<float>(b[0]);
+      a = a + c.pre[1] * static_cast<float>(b[pw]);
+      a = a + c.pre[2] * static_cast<float>(b[2 * pw]);
       P[it.r * pw + it.q] = a;
     }
     __syncthreads();
     for (Walk it(tid, nth, cols); it.r < rows; it.next()) {
-      const float* h = P + it.r * pw + (oft::clampi(xs + it.q, 0, W - 1) - cx0);
+      const float* h = P + (oft::clampi(ys + it.r, 0, H - 1) - cy0) * pw +
+                       (oft::clampi(xs + it.q, 0, W - 1) - cx0);
       float v = c.pre[0] * h[0];
       v = v + c.pre[1] * h[1];
       v = v + c.pre[2] * h[2];
@@ -208,26 +255,28 @@ __device__ __forceinline__ void stage(const T* __restrict__ img, int ys, int xs,
 
 // The three vertical correlations of rows i0 .. i0 + rows - 1 at columns
 // 0 .. cols - 1 of U (stride us; row i's window is U rows i .. i + 2n):
-// V[k * vplane + (i - i0) * vs + col].  Four rows a thread where four
-// remain, one at a time in the last group.
+// V[k * vplane + (i - i0) * vs + col].  kVRows rows a thread from one
+// sliding run where that many remain, one at a time in the last group.
+constexpr int kVRows = 4;
+
 template <int NTAPS>
 __device__ __forceinline__ void vertical_pass(const float* U, int us, int i0,
                                               int rows, int cols, float* V,
                                               int vs, int vplane, int taps,
                                               const PolyConsts& c, int tid,
                                               int nth) {
-  const int groups = (rows + 3) / 4;
+  const int groups = (rows + kVRows - 1) / kVRows;
   for (Walk it(tid, nth, cols); it.r < groups; it.next()) {
     const int col = it.q;
-    const int i = 4 * it.r;
+    const int i = kVRows * it.r;
     const float* p = U + (i0 + i) * us + col;
     float* v = V + i * vs + col;
-    if (i + 4 <= rows) {
-      float a0[4], a1[4], a2[4];
-      oft::vertical_run<4, NTAPS>([&](int q) { return p[q * us]; }, taps, c, a0, a1,
-                                  a2);
+    if (i + kVRows <= rows) {
+      float a0[kVRows], a1[kVRows], a2[kVRows];
+      oft::vertical_run<kVRows, NTAPS>([&](int q) { return p[q * us]; }, taps, c, a0,
+                                       a1, a2);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kVRows; ++j) {
         v[j * vs] = a0[j];
         v[vplane + j * vs] = a1[j];
         v[2 * vplane + j * vs] = a2[j];
@@ -308,19 +357,34 @@ update_blur_poly_kernel(const void* __restrict__ img0_v,
                 tid, NTH);
   {
     int lo_y = INT_MAX, hi_y = INT_MIN, lo_x = INT_MAX, hi_x = INT_MIN;
-    for (Walk it(tid, NTH, nc); it.r < nr; it.next()) {
-      const int y = ylo + it.r;
-      const int x = xlo + it.q;
-      const long long p = static_cast<long long>(y) * W + x;
-      int yi, xi;
-      if (oft::fetch_target(y, x, fl[p], fl[plane + p], H, W, yi, xi)) {
-        lo_y = min_i(lo_y, yi);
-        hi_y = max_i(hi_y, yi);
-        lo_x = min_i(lo_x, xi);
-        hi_x = max_i(hi_x, xi);
-        if (y == cy && x == cx) {
-          red[4] = yi;
-          red[5] = xi;
+    constexpr int kFlows = 8;    // flow pixels a thread in flight
+    for (int e0 = tid; e0 < nr * nc; e0 += kFlows * NTH) {
+      float fx[kFlows], fy[kFlows];
+      int ys[kFlows], xs[kFlows];
+#pragma unroll
+      for (int u = 0; u < kFlows; ++u) {
+        const int e = e0 + u * NTH;
+        if (e < nr * nc) {
+          ys[u] = ylo + e / nc;
+          xs[u] = xlo + e % nc;
+          const long long p = static_cast<long long>(ys[u]) * W + xs[u];
+          fx[u] = fl[p];
+          fy[u] = fl[plane + p];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFlows; ++u) {
+        int yi, xi;
+        if (e0 + u * NTH < nr * nc &&
+            oft::fetch_target(ys[u], xs[u], fx[u], fy[u], H, W, yi, xi)) {
+          lo_y = min_i(lo_y, yi);
+          hi_y = max_i(hi_y, yi);
+          lo_x = min_i(lo_x, xi);
+          hi_x = max_i(hi_x, xi);
+          if (ys[u] == cy && xs[u] == cx) {
+            red[4] = yi;
+            red[5] = xi;
+          }
         }
       }
     }
@@ -421,16 +485,28 @@ update_blur_poly_kernel(const void* __restrict__ img0_v,
     __syncthreads();
     int lo_y = INT_MAX, hi_y = INT_MIN, lo_x = INT_MAX, hi_x = INT_MIN, n_left = 0;
     Walk it(tid, NTH, nc);
+    float next_dx = 0.0f, next_dy = 0.0f;   // the flow of the thread's next pixel
+    if (tid < total) {
+      const long long p = static_cast<long long>(ylo + it.r) * W + xlo + it.q;
+      next_dx = fl[p];
+      next_dy = fl[plane + p];
+    }
     for (int base = tid - lane; base < total; base += NTH, it.next()) {
       const int e = base + lane;
+      const int y = ylo + it.r;
+      const int x = xlo + it.q;
+      const float dx = next_dx;
+      const float dy = next_dy;
+      if (e + NTH < total) {
+        Walk nx = it;
+        nx.next();
+        const long long p = static_cast<long long>(ylo + nx.r) * W + xlo + nx.q;
+        next_dx = fl[p];
+        next_dy = fl[plane + p];
+      }
       const bool was = pass > 0 && e < total && ((done[base >> 5] >> lane) & 1u);
       bool now = false;
       if (e < total && !was) {
-        const int y = ylo + it.r;
-        const int x = xlo + it.q;
-        const long long p = static_cast<long long>(y) * W + x;
-        const float dx = fl[p];
-        const float dy = fl[plane + p];
         int yi, xi;
         const bool inside = oft::fetch_target(y, x, dx, dy, H, W, yi, xi);
         const bool in_box = inside && yi >= bx.y0 && yi < bx.y0 + bx.h &&

@@ -37,13 +37,15 @@ K7 (`csrc/update_blur_poly.cu`) replaces `fused_update_blur_store_poly`
 (`:1145`): K1 from the level images, with R0 and R1 expanded inside the
 step by K2's arithmetic (`csrc/polyexp.cuh`), so R never exists in device
 memory and the flow equals K2 -> K1 to the bit.  It trades K2's R traffic
-for arithmetic.  A block expands img0 separably over its M pixels (the
-32-row tile plus the window's halo), and img1's vertical correlations
-once over the bounding box of its fetch targets, cut to what its shared
-memory holds (`_k7_plan`); a target outside that box takes R1 from its
-own (2n+1)^2 window in device memory.  M on the tile plus its halo
-bounds winsize and poly_n: `k7_fits`.  `update_blur_poly_counted` also
-counts the M pixels of each path.
+for arithmetic.  A block (a 64 x 32 output tile where it fits, else
+32 x 32: `_k7_tile`) expands img0 separably over its M pixels (the tile
+plus the window's halo), and img1's vertical correlations once over the
+bounding box of its fetch targets, cut to what its shared memory holds
+(`_k7_plan`), then over the bounds of the targets left, up to three
+boxes; a target left outside them takes R1 from its own (2n+1)^2 window
+in device memory.  M on the tile plus its halo bounds winsize and
+poly_n: `k7_fits`.  `update_blur_poly_counted` also counts the M pixels
+of each path.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
 from optical_flow_tpu_torch.models.farneback import core
 
 _K7_ROWS = 32       # K7's output rows per block (TY in update_blur_poly.cu)
-_K7_TILE_W = 32     # its output columns per block by default (kDefaultTile)
+_K7_TILE_W = 64     # its output columns per block by default (kDefaultTile)
 _K7_TWO_BLOCKS = 228 * 1024 // 2 - 1024   # a block's share at two an SM
 _STRIP = 32         # K1's strip width and rows built per pass (SW, G)
 _K1_MAX_WINSIZE = 61

@@ -254,7 +254,9 @@ def test_k7_takes_what_it_took_before_its_redesign():
             assert update_gather.k7_fits(winsize, poly_n) == former(winsize, poly_n)
     assert all(update_gather.k7_fits(w, n) for w in range(1, 62) for n in (5, 7))
     assert not update_gather.k7_fits(63, 5)
-    assert update_gather._k7_tile(15, 5) == 32 and update_gather._k7_tile(61, 7) == 32
+    # 64 columns where they fit (1080p's winsize 15), else 32
+    assert update_gather._k7_tile(15, 5) == 64 and update_gather._k7_tile(61, 7) == 32
+    assert max(w for w in range(1, 62) if update_gather._k7_tile(w, 5) == 64) == 37
 
 
 def test_k5b_strip_takes_every_winsize_up_to_261():
