@@ -579,13 +579,13 @@ def occupancy_k7(cfg, dev) -> dict:
     return out
 
 
-def k7_paths(img0, img1, flow, winsize, gaussian, cfg, pre, tile_w=None) -> dict:
-    """How K7's M pixels took R1 on these inputs (the counted entry): the
-    counts and the share that took the per-pixel path."""
+def k7_paths(img0, img1, flow, winsize, gaussian, cfg, pre) -> dict:
+    """How K7's M pixels took R1 on these inputs (the counted entry at the
+    default tile): the counts and the share that took the per-pixel path."""
     import torch
     from optical_flow_tpu_torch.kernels.update_gather import update_blur_poly_counted
     got, counts = update_blur_poly_counted(img0, img1, flow, winsize, gaussian,
-                                           cfg.poly_n, cfg.poly_sigma, pre, tile_w=tile_w)
+                                           cfg.poly_n, cfg.poly_sigma, pre)
     torch.cuda.synchronize()
     del got
     return {**counts, "per_pixel_share": counts["per_pixel"] / max(counts["m_pixels"], 1)}

@@ -612,12 +612,13 @@ def _spread_flow(kind, B, h, w, seed):
     return torch.as_tensor(np.stack(flows).astype(np.float32))
 
 
-K7_SPREAD_WINDOWS = [(1, False), (15, False), (15, True), (61, False), (61, True)]
+# (winsize, Gaussian window, tile width): both widths where 64 columns fit
+K7_SPREAD_WINDOWS = [(1, False, 32), (1, False, 64), (15, False, 32), (15, False, 64),
+                     (15, True, 32), (15, True, 64), (61, False, 32), (61, True, 32)]
 
 
-@pytest.mark.parametrize("tile_w", [32, 64])
 @pytest.mark.parametrize("poly_n", [5, 7])
-@pytest.mark.parametrize("winsize,gaussian", K7_SPREAD_WINDOWS)
+@pytest.mark.parametrize("winsize,gaussian,tile_w", K7_SPREAD_WINDOWS)
 @pytest.mark.parametrize("kind", ["u8_pre", "f32"])
 @pytest.mark.parametrize("flow_kind", ["smooth", "random60", "jump", "borders"])
 def test_update_blur_poly_fetch_box(dev, flow_kind, kind, winsize, gaussian, poly_n,
@@ -627,10 +628,7 @@ def test_update_blur_poly_fetch_box(dev, flow_kind, kind, winsize, gaussian, pol
     block stages whole: equal to K2 -> K1 to the bit, at both tile widths
     (the counted entry) and through update_blur_poly; both paths taken
     where ±60 px targets spread past the block's boxes."""
-    from optical_flow_tpu_torch.kernels.update_gather import (_k7_plan,
-                                                              update_blur_poly_counted)
-    if _k7_plan(winsize, poly_n, tile_w) is None:
-        pytest.skip(f"winsize {winsize} has no {tile_w}-column tile (32 takes it)")
+    from optical_flow_tpu_torch.kernels.update_gather import update_blur_poly_counted
     h, w = (160, 130) if flow_kind == "jump" else (99, 130)
     if flow_kind == "jump":
         f1, f2 = vertical_jump_pair(h, w)
@@ -657,6 +655,16 @@ def test_update_blur_poly_fetch_box(dev, flow_kind, kind, winsize, gaussian, pol
         assert counts["per_pixel"] == 0 and counts["boxed"] > 0, counts
     if flow_kind == "random60" and winsize == 15 and tile_w == 32:
         assert counts["per_pixel"] > 0 and counts["boxed"] > 0, counts
+
+
+@pytest.mark.parametrize("kind", ["u8_pre", "f32"])
+@pytest.mark.parametrize("winsize,poly_n", [(5, 95), (39, 56), (1, 96)])
+def test_update_blur_poly_wide_expansion(dev, winsize, poly_n, kind):
+    """Expansions so wide that the block's region holds no row of R0's
+    vertical sums (R0 per pixel from the staged img0: winsize 5 at
+    poly_n 95, 39 at 56) or only a few (R0 in bands: 1 at 96), and
+    hardly a fetch box: equal to K2 -> K1 to the bit."""
+    _k7_against_k2_k1(dev, 37, 53, winsize, False, poly_n, kind)
 
 
 def test_update_blur_poly_rejects_what_it_does_not_take(dev):
