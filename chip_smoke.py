@@ -18,8 +18,8 @@ and a frame within the radius; K4 at B=16 and B=1 on 1080x1920 and
 box and Gaussian, at winsize 15 and at winsize 63, where its path runs
 it; K7, box and Gaussian, at every level and at L0 on a ±60 px flow,
 equal to K2 -> K1 to the bit, with the share of its M pixels that took
-the per-pixel path, both tile widths timed, ptxas's report and its
-occupancy; K2 and K5b with ptxas's report too),
+the per-pixel path, ptxas's report and its occupancy at both tile
+widths; K2 and K5b with ptxas's report too),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
@@ -598,13 +598,11 @@ def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
     ±60 px one (`spread60_L0`, whose fetch boxes are cut: both paths);
     and against K2 -> K1 on the same inputs (K2's R of the level, then
     K1): equal to the bit.  Per case the share of M pixels on the
-    per-pixel path; with the box window, both tile widths timed per level
-    (`tile_ms`, the counted entry without counts), ptxas's report and the
+    per-pixel path; with the box window, ptxas's report and the
     occupancy."""
     import torch
-    from optical_flow_tpu_torch.kernels.update_gather import (_k7_plan, update_blur,
-                                                              update_blur_poly,
-                                                              update_blur_poly_counted)
+    from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
+                                                              update_blur_poly)
     from optical_flow_tpu_torch.models.farneback import core
     from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
 
@@ -614,7 +612,7 @@ def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
     spread = (torch.rand((B, 2) + both.shape[1:], generator=gen, device=both.device)
               - 0.5) * 120.0
     for gaussian in (False, True):
-        cases, vs_k2_k1, shares, tile_ms = [], 0.0, {}, {}
+        cases, vs_k2_k1, shares = [], 0.0, {}
         for lv in plan.levels:
             if lv.k == 0:
                 src, pre = both, gaussian_kernel(lv.smooth_ksize, lv.smooth_sigma)
@@ -633,13 +631,6 @@ def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
                         f"K7 != K2 -> K1 at {label} (gaussian={gaussian}): max diff {vs_k2_k1}")
                 del got, ref
                 shares[label] = k7_paths(img0, img1, flow, cfg.winsize, gaussian, cfg, pre)
-                if not gaussian:
-                    tile_ms[label] = {
-                        f"{tw}x32": cuda_ms(lambda a=img0, b=img1, f=flow, p=pre, tw=tw:
-                                            update_blur_poly_counted(
-                                                a, b, f, cfg.winsize, False, n, sigma, p,
-                                                tile_w=tw, count=False), 10)
-                        for tw in (32, 64) if _k7_plan(cfg.winsize, n, tw)}
                 cases.append((
                     label,
                     lambda a=img0, b=img1, f=flow, p=pre, g=gaussian:
@@ -650,10 +641,7 @@ def kernel_k7_phase(both, imgs, Rs, flows, plan, cfg, stats) -> None:
                     None))
         window = "gaussian" if gaussian else "box"
         extra = ({"ptxas": ptxas_report("update_blur_poly"),
-                  "occupancy": occupancy_k7(cfg, both.device),
-                  "tile_ms": tile_ms,
-                  "tile_ms_sum": {t: sum(v[t] for k, v in tile_ms.items() if k.startswith("L"))
-                                  for t in tile_ms["L0"]}}
+                  "occupancy": occupancy_k7(cfg, both.device)}
                  if not gaussian else {})
         run_cases("K7", cases, stats, key="K7_gaussian" if gaussian else None,
                   window=window, max_abs_err_vs_k2_k1=vs_k2_k1, paths=shares, **extra)

@@ -446,7 +446,7 @@ update_blur_poly_kernel(const void* __restrict__ img0_v,
       const int j = it.q;
       const float* s0 = X + i * us0 + j;
       float R[5];
-      oft::expand_at([&](int k, int q) { return s0[k * us0 + q]; }, n, c, R);
+      oft::expand_at([&](int k, int q) { return s0[k * us0 + q]; }, n_arg, c, R);
       float* o = Ms + (ylo + i - y0 + m) * MW + (xlo + j - x0 + m);
       for (int k = 0; k < 5; ++k) o[k * MH * MW] = R[k];
     }
@@ -534,7 +534,7 @@ update_blur_poly_kernel(const void* __restrict__ img0_v,
                                                    oft::clampi(xi - n + j, 0, W - 1),
                                                    H, W, c);
                 },
-                n, c, d);
+                n_arg, c, d);
             ++per_pixel;
           }
           oft::assemble(a, d, dx, dy, inside, y, x, H, W, mv);
@@ -604,12 +604,16 @@ using KernelFn = void (*)(const void*, const void*, const float*, float*, int, i
                           int, int, const float*, float, int, unsigned long long*,
                           const PolyConsts);
 
-// cv2's poly_n 5 compiled with its n (the loops unroll with the taps as
-// constant operands); any other n read at run time.
+// cv2's poly_n 5 compiled with its n (the correlation runs unroll with
+// the taps as constant operands) for the pyramid's launches at the
+// default tile: uint8 with the pre-smooth at level 0, f32 without above;
+// any other launch reads n at run time.  (The per-pixel expansions take
+// n at run time throughout: unrolled, they only lengthen the build.)
 template <typename T, bool PRE, bool GAUSS, int TX>
 KernelFn pick_n(int n) {
-  return n == 5 ? update_blur_poly_kernel<T, PRE, GAUSS, TX, 5>
-                : update_blur_poly_kernel<T, PRE, GAUSS, TX, 0>;
+  if constexpr (TX == kDefaultTile && (sizeof(T) == 1) == PRE)
+    if (n == 5) return update_blur_poly_kernel<T, PRE, GAUSS, TX, 5>;
+  return update_blur_poly_kernel<T, PRE, GAUSS, TX, 0>;
 }
 
 template <typename T, bool PRE, bool GAUSS>
@@ -689,7 +693,7 @@ extern "C" int oft_update_blur_poly(const void* img0, const void* img1,
 
 // oft_update_blur_poly at a tile of tile_w (32 or 64) output columns,
 // adding to counts[0] the M pixels whose R1 came from device memory (the
-// per-pixel path), to counts[1] those whose R1 came from the fetch box
+// per-pixel path), to counts[1] those whose R1 came from a fetch box
 // and to counts[2] every M pixel the blocks evaluated (device array of 3).
 extern "C" int oft_update_blur_poly_counted(
     const void* img0, const void* img1, int src_u8, const float* flow_in,

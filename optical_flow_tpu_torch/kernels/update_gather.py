@@ -250,20 +250,17 @@ def update_blur_poly(img0: torch.Tensor, img1: torch.Tensor, flow: torch.Tensor,
 def update_blur_poly_counted(img0: torch.Tensor, img1: torch.Tensor,
                              flow: torch.Tensor, winsize: int, gaussian: bool,
                              poly_n: int, poly_sigma: float, pre_taps=None,
-                             tile_w: int | None = None, count: bool = True):
+                             tile_w: int | None = None):
     """K7 on CUDA tensors at `tile_w` output columns (32 or 64; None: the
     default launch's), and how its M pixels took R1: (new flow, {"per_pixel":
-    from img1 in device memory, "boxed": from the block's fetch box,
-    "m_pixels": every M pixel the blocks evaluated}, or None without
-    `count`).  A measurement entry (chip_smoke.py, the card tests); the
-    flow equals update_blur_poly's."""
+    from img1 in device memory, "boxed": from the block's fetch boxes,
+    "m_pixels": every M pixel the blocks evaluated}).  A measurement entry
+    (chip_smoke.py, the card tests); the flow equals update_blur_poly's."""
     if not on_cuda(flow):
         raise ValueError("the fetch counts come from the kernel: CUDA tensors only")
-    counts = torch.zeros(3, dtype=torch.int64, device=flow.device) if count else None
+    counts = torch.zeros(3, dtype=torch.int64, device=flow.device)
     out = _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma,
                      pre_taps, None, tile_w or _k7_tile(winsize, poly_n), counts)
-    if counts is None:
-        return out, None
     per_pixel, boxed, total = counts.tolist()
     return out, {"per_pixel": per_pixel, "boxed": boxed, "m_pixels": total}
 
@@ -272,7 +269,7 @@ def _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma, pre_taps
                out, tile_w=None, counts=None):
     """update_blur_poly's launch on CUDA tensors: the default entry, or at
     `tile_w` columns the counted one, adding to `counts` (a device int64
-    (3,)) where given."""
+    (3,))."""
     dev = flow.device
     check(flow, "flow", dev, (torch.float32,), 4)
     B, two, h, w = flow.shape
@@ -305,8 +302,7 @@ def _launch_k7(img0, img1, flow, winsize, gaussian, poly_n, poly_sigma, pre_taps
     if tile_w is None:
         rc = _k7()(*args, dev.index, stream)
     else:
-        rc = _k7_counted()(*args, tile_w, None if counts is None else counts.data_ptr(),
-                           dev.index, stream)
+        rc = _k7_counted()(*args, tile_w, counts.data_ptr(), dev.index, stream)
     raise_on_error(rc, "update_blur_poly")
     LAUNCHES["K7"] += 1
     return out
