@@ -51,11 +51,9 @@
 // and TX 64; 2.07 at TX 32) and img1's vertical sums over the fetch box,
 // and takes a horizontal correlation per M pixel: about 1,300 operations
 // per output.  The former kernel derived R0 and R1 per M pixel from their
-// (2n+1)^2 windows, about 8,800.  What holds it above that is latency: one
-// block of 16 warps an SM at TX 64 (two of 8 at TX 32), with the block's
-// phases between barriers; a clock64 breakdown at 1080p level 0 puts
-// about a fifth of a block's time in step 1's loads, a fifth in step 3,
-// a quarter in step 4 and a fifth in step 5 (PERF.md).
+// (2n+1)^2 windows, about 8,800.  What holds it above that is, as far as
+// measured, latency: one block of 16 warps an SM at TX 64 (two of 8 at
+// TX 32), its steps between barriers, each starting on loads (PERF.md).
 //
 // Shared memory (floats; kernels/update_gather.py:_k7_plan mirrors
 // `plan`): M [5][32 + 2m][TX + 2m], the window taps, then one region X
