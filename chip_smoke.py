@@ -5,7 +5,7 @@ Run from the repo root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--profile]
 
-It builds the eight CUDA kernels from `optical_flow_tpu_torch/csrc/`
+It builds the ten CUDA kernels from `optical_flow_tpu_torch/csrc/`
 (one nvcc per source, in parallel) and holds each against its plain
 PyTorch version at the shapes of the 1080p B=16 paths (the K1 and K3
 lines also carry ptxas's registers, spills and shared memory per kernel
@@ -19,7 +19,11 @@ box and Gaussian, at winsize 15 and at winsize 63, where its path runs
 it; K7, box and Gaussian, at every level and at L0 on a ±60 px flow,
 equal to K2 -> K1 to the bit, with the share of its M pixels that took
 the per-pixel path, ptxas's report and its occupancy at both tile
-widths; K2 and K5b with ptxas's report too),
+widths; K2 and K5b with ptxas's report too; X1, the resample that
+replaces the JAX package's fused resize glue, equal to the bit at the
+three x2 upsamples, the seed's downsample read in its (B, H, W, 2) layout
+and the levels=5 resizes; X2, the per-pair magnitude sum, within one f32
+ulp at 1080p B=16 and 72x129 B=128, equal across runs and batch sizes),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
@@ -61,9 +65,13 @@ wall seconds and nvcc runs each, 0 required for the last two).
 Kernels build into `build/<hash>/` of the checkout unless
 OFT_COMPILE_CACHE names another directory.
 --profile adds `profile_1080p`, `profile_deep_1080p`,
-`profile_winsize63_1080p` and `profile_8k`: the device time per kernel
-and the busy share of the 1080p flow call under flags 0, 256 and 4, with
-levels=5 and with winsize 63, and of the 8K pair (torch.profiler).
+`profile_winsize63_1080p`, `profile_8k` and `profile_72x129`: the device
+time per kernel, the kernels launched and the host-to-device copies per
+call and the busy share of the 1080p flow call under flags 0, 256 and 4,
+with levels=5 and with winsize 63, of the 8K pair and of the extractor's
+72x129 chunk (torch.profiler); and `profile_extractor_corpus` (the
+extractor's loop at 72x129).  --profile-only builds and runs those alone,
+with no checks and no result line, in this tree or a parent's.
 One JSON line per phase; then the card's nvidia-smi line, the kernels
 summary (each kernel's launches on the paths, its error against its
 plain version, its time, its plain version's, the bound of its bytes or
@@ -95,7 +103,7 @@ CROP = 32
 WARMUP, TIMED, PROFILED = 3, 10, 5
 KERNEL_TOL = {"K3": (1e-4, 1e-5), "K2": (1e-4, 1e-5), "K1": (1e-3, 1e-3),
               "K5a": (1e-4, 1e-5), "K5b": (1e-3, 1e-3), "K6": (0.0, 0.0),
-              "K7": (1e-3, 1e-3)}
+              "K7": (1e-3, 1e-3), "X1": (0.0, 0.0)}
 EPE_GATE = 0.5            # BASELINE.md's interior EPE gate, px
 WIDE = (4320, 7680)       # wider than the TPU kernels' 4096-column window
 WIDE_WINDOW = 63          # a box beyond K1's tile: the window K5b runs
@@ -127,6 +135,11 @@ KERNEL_INFO = {
            "optical_flow_tpu/pallas/gauss.py:107"),
     "K7": ("update_blur_poly", "optical_flow_tpu_torch/csrc/update_blur_poly.cu",
            "optical_flow_tpu/pallas/update_gather.py:1145"),
+    # the glue the JAX package leaves to XLA's fusions (no pl.pallas_call)
+    "X1": ("resample", "optical_flow_tpu_torch/csrc/resample.cu",
+           "optical_flow_tpu/models/farneback/flow.py:296"),
+    "X2": ("magnitude_sum", "optical_flow_tpu_torch/csrc/magnitude_sum.cu",
+           "optical_flow_tpu/pipeline/extractor.py:113"),
 }
 
 
@@ -300,6 +313,27 @@ def work_blur_solve(flow, winsize: int, gaussian: bool) -> tuple:
     """K5b: M read, the flow written (28 B/px); the window sums, the solve."""
     px = pixels(flow)
     return 28 * px, px * (window_ops(winsize, gaussian) + SOLVE_OPS)
+
+
+def work_resample(x, iy, ix, vertical_first: bool) -> tuple:
+    """X1 with the tap tables' indices iy (dh, Ty) and ix (dw, Tx): the
+    source pixels the taps reach read once (a downsample by bilinear taps
+    reaches a few rows and columns of each step), the f32 output written
+    once; the two passes' multiplies and adds (each first-pass value made
+    once, over the rows or columns the taps reach), and the scale."""
+    n = x.numel() // (x.shape[-2] * x.shape[-1])
+    (dh, ty), (dw, tx) = iy.shape, ix.shape
+    rows, cols = len(np.unique(iy)), len(np.unique(ix))
+    inter = n * (dh * cols * (2 * ty - 1) if vertical_first else rows * dw * (2 * tx - 1))
+    out = n * dh * dw
+    return (n * rows * cols * 4 + out * 4,
+            inter + out * 2 * (tx if vertical_first else ty))
+
+
+def work_magnitude_sum(flow) -> tuple:
+    """X2: the planar flow read once, the sums written; two multiplies, an
+    add and a sqrt a pixel (the f64 sum aside)."""
+    return flow.numel() * 4 + flow.shape[0] * 4, 4 * pixels(flow)
 
 
 def library_blur(taps, dev):
@@ -947,6 +981,94 @@ def kernel_k6_phase(both, stats) -> None:
     run_cases("K6", cases, stats, ptxas=ptxas_report("gauss"), occupancy=occupancy)
 
 
+def kernel_x1_phase(dev, stats) -> None:
+    """X1 against its plain version, to the bit, at the shapes of the
+    1080p B=16 paths: the flow's three x2 upsamples with their scale
+    (labels L2, L1, L0: the level made; the kernels line's sum), the
+    seed's INTER_AREA downsample to L3 read in its (B, H, W, 2) layout,
+    and the levels=5 pyramid's two resizes after K6 (of the (32, 1080,
+    1920) f32 blur).  Library: F.interpolate (bilinear with half-pixel
+    centres, or area) times the scale."""
+    import torch
+    import torch.nn.functional as F
+    from optical_flow_tpu_torch.kernels.resample import area_plan, resize_area, resize_bilinear
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
+    from optical_flow_tpu_torch.ops.resize import (_area_taps, bilinear_taps,
+                                                   resize_area_f32, resize_bilinear_f32)
+    from optical_flow_tpu_torch.utils.config import FarnebackConfig
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+
+    def bilinear(label, x, dh, dw, scale):
+        cases.append((label, lambda: resize_bilinear(x, dw, dh, scale),
+                      lambda: resize_bilinear_f32(x, dw, dh) * scale,
+                      work_resample(x, bilinear_taps(x.shape[-2], dh)[0],
+                                    bilinear_taps(x.shape[-1], dw)[0], False),
+                      lambda: F.interpolate(x if x.dim() == 4 else x[:, None], size=(dh, dw),
+                                            mode="bilinear", align_corners=False) * scale))
+
+    levels = build_plan(1080, 1920, FarnebackConfig()).levels
+    for coarse, fine in zip(levels, levels[1:]):
+        flow = random_flow((BATCH, 2, coarse.height, coarse.width), gen, dev)
+        bilinear(f"L{fine.k}", flow, fine.height, fine.width, 2.0)
+    seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev).movedim(-1, 1)
+    l3 = levels[0]
+    plan = area_plan(1080, 1920, l3.height, l3.width)
+    require(len(plan) == 1, f"X1: the seed's downsample takes {len(plan)} launches")
+    cases.append((f"seed_area_L{l3.k}_strided", lambda: resize_area(seed, l3.width, l3.height, 0.125),
+                  lambda: resize_area_f32(seed, l3.width, l3.height) * 0.125,
+                  work_resample(seed, _area_taps(1080, l3.height)[0],
+                                _area_taps(1920, l3.width)[0], True),
+                  lambda: F.interpolate(seed, size=(l3.height, l3.width), mode="area") * 0.125))
+    blurred = torch.rand((2 * BATCH, 1080, 1920), generator=gen, device=dev) * 255.0
+    for lv in build_plan(1080, 1920, FarnebackConfig(levels=5)).levels:
+        if lv.k >= 4:
+            bilinear(f"deep5_resize_L{lv.k}", blurred, lv.height, lv.width, 1.0)
+    run_cases("X1", cases, stats, tolerance="equal to the bit")
+
+
+def kernel_x2_phase(dev, stats) -> None:
+    """X2 against its plain version (the f64 sum rounded once): within one
+    f32 ulp per pair, equal across two runs, and each of a few pairs the
+    same alone as in its batch; at 1080p B=16 (the kernels line's case)
+    and 72x129 B=128.  Library: torch.linalg.vector_norm over the two
+    components, then the sum (f32)."""
+    import torch
+    from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
+    from optical_flow_tpu_torch.ops.polar import magnitude_sums
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for b, h, w in ((BATCH, 1080, 1920), (128, 72, 129)):
+        flow = random_flow((b, 2, h, w), gen, dev)
+        got = magnitude_sum(flow)
+        ref = magnitude_sums(flow[:, 0], flow[:, 1])
+        again = magnitude_sum(flow)
+        alone = [magnitude_sum(flow[i:i + 1]) for i in (0, b // 2, b - 1)]
+        torch.cuda.synchronize()
+        ulps = int((got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max())
+        require(ulps <= 1, f"X2 {b}x{h}x{w}: {ulps} ulps off the plain version")
+        require(torch.equal(got, again), f"X2 {b}x{h}x{w}: two runs differ")
+        require(all(torch.equal(a, got[i:i + 1]) for a, i in zip(alone, (0, b // 2, b - 1))),
+                f"X2 {b}x{h}x{w}: a pair alone differs from the batch")
+        row = {"case": f"B{b}_{h}x{w}", "max_ulps": ulps,
+               "max_abs_err": float((got - ref).abs().max()),
+               "ms": cuda_ms(lambda: magnitude_sum(flow), 20),
+               "plain_ms": cuda_ms(lambda: magnitude_sums(flow[:, 0], flow[:, 1]), 5),
+               "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(flow, dim=1).sum((-2, -1)),
+                                     20)}
+        row["bound_ms"], row["bound_by"] = bound(work_magnitude_sum(flow))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        del flow
+    stats["X2"] = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}
+    stats["X2"]["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    emit("kernel_X2", name=KERNEL_INFO["X2"][0], tolerance="1 f32 ulp", cases=rows,
+         ptxas=ptxas_report("magnitude_sum"))
+
+
 def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
               golden_key: str | None = None, seeded: bool = False,
               batch: int = BATCH, shift=SHIFT, fused_poly: bool = False):
@@ -967,8 +1089,10 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     from optical_flow_tpu_torch.kernels.update_gather import k1_fits
     from optical_flow_tpu_torch.models.farneback.flow import (calc_flow,
                                                               calc_flow_batched)
+    from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
+    from optical_flow_tpu_torch.kernels.resample import area_plan
     from optical_flow_tpu_torch.models.farneback.params import build_plan
-    from optical_flow_tpu_torch.ops.polar import magnitude
+    from optical_flow_tpu_torch.ops import polar
     from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 
     true_flow = (-float(shift[1]), -float(shift[0]))
@@ -979,7 +1103,9 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
         if seed is None:
             return magnitude_sums(prev, nxt, cfg, plain=plain)
         flow = calc_flow_batched(prev, nxt, cfg, seed, plain=plain)
-        return magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
+        if plain:
+            return polar.magnitude_sums(flow[..., 0], flow[..., 1])
+        return magnitude_sum(flow.movedim(-1, 1))
 
     levels = build_plan(h, w, cfg).levels
     n_k6 = sum(1 for lv in levels
@@ -987,10 +1113,13 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     steps = len(levels) * cfg.iterations
     fused = k1_fits(cfg.winsize) and not fused_poly
     unfused = not k1_fits(cfg.winsize) and not fused_poly
+    # X1: the upsamples, the K6 route's resizes and the seed's downsample
+    n_area = len(area_plan(h, w, levels[0].height, levels[0].width)) if seeded else 0
     expected = {"K3": len(levels) - 1 - n_k6, "K2": 0 if fused_poly else len(levels),
                 "K1": steps if fused else 0, "K4": 0,
                 "K5a": steps if unfused else 0, "K5b": steps if unfused else 0,
-                "K6": n_k6, "K7": steps if fused_poly else 0}
+                "K6": n_k6, "K7": steps if fused_poly else 0,
+                "X1": len(levels) - 1 + n_k6 + n_area, "X2": 1}
     path = [kid for kid, n in expected.items() if n > 0]
     fused_iterate.FUSE_POLYEXP = fused_poly
     # K1's launches by level width: the update_blur calls of the counted run
@@ -1170,7 +1299,8 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
     n_chunks = -(-BATCH // chunk)
     expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
                 "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks,
-                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
+                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,
+                "X1": (n_levels - 1) * n_chunks, "X2": 0}
     reset_launches()
     bgr = loop(False)
     torch.cuda.synchronize()
@@ -1248,8 +1378,8 @@ def mesh_dp_phase(dev, power) -> None:
     shards), `sharded_bgr_chain_step` over `chain_shards(frames, 2)` and
     the visualizer's loop through the mesh must each equal the one-device
     entry to the bit.  Also the sums of the two shards summed apart (the
-    JAX package's per-shard reduction) against the one-device sums: the
-    reason the branch reduces the gathered magnitudes as one batch."""
+    JAX package's per-shard reduction) against the one-device sums: equal,
+    as X2 sums each pair in an order fixed by (H, W) alone."""
     import torch
     from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
     from optical_flow_tpu_torch.models.farneback.flow import (
@@ -1276,8 +1406,10 @@ def mesh_dp_phase(dev, power) -> None:
     flow, sums, bgr = sharded()
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    for kid in ("K1", "K2", "K3", "K4"):
+    for kid in ("K1", "K2", "K3", "K4", "X1", "X2"):
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
+    # each data shard sums its own pairs: one X2 a shard with pairs
+    require(launches["X2"] == 2, f"{name}: {launches['X2']} X2 launches, expected 2")
     wall_s = median_s(sharded, warmup=1, timed=3)
     one_flow = calc_flow_batched(prev, nxt)
     one_sums = magnitude_sums(prev, nxt)
@@ -1289,6 +1421,8 @@ def mesh_dp_phase(dev, power) -> None:
     require(torch.equal(bgr, one_bgr), f"{name}: sharded BGR chain != "
             f"calc_flow_bgr_chain_batched on {int((bgr != one_bgr).sum())} bytes")
     apart = torch.cat([magnitude_sums(prev[:9], nxt[:9]), magnitude_sums(prev[9:], nxt[9:])])
+    require(torch.equal(apart, one_sums), f"{name}: sums of 9 + 8 pairs != sums of 17: max "
+            f"diff {float((apart - one_sums).abs().max())}")
 
     def loop():
         out = []
@@ -1311,8 +1445,7 @@ def mesh_dp_phase(dev, power) -> None:
          devices=[str(d) for d in mesh.devices.flat], launches=launches,
          flow_equal=True, sums_equal=True, bgr_chain_equal=True,
          visualizer_equal=True,
-         per_shard_sums_max_abs_diff=float((apart - one_sums).abs().max()),
-         per_shard_sums_equal=bool(torch.equal(apart, one_sums)),
+         per_shard_sums_equal=True,
          wall_s=wall_s, card=power)
 
 
@@ -1345,7 +1478,7 @@ def mesh_sp_phase(dev, power) -> None:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    for kid in ("K6", "K2", "K5a", "K5b"):
+    for kid in ("K6", "K2", "K5a", "K5b", "X1"):
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
     require(all(launches[k] == 0 for k in ("K1", "K3", "K4", "K7")),
             f"{name}: a one-device kernel ran under sp: {launches}")
@@ -1395,42 +1528,84 @@ def clip_offsets(n: int, amplitude: int) -> list:
     return [amplitude - abs(amplitude - i % (2 * amplitude)) for i in range(n)]
 
 
-def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
-                               dev, power) -> None:
-    """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
-    over an in-memory 25 fps clip of n_frames (h, w) gray frames moving
-    1 px per frame (`translating_clip`), with the windows extract_video
-    takes at the default step and window (300 ms): the needed frames
-    upload one by one through pinned memory, chunks of
-    `pair_chunk_for(h, w)` pairs, two in flight.  Held to the plain path
-    on the card (sums 1e-4 rel, the scaled CSV line identical), to the
-    FUSE_POLYEXP run (sums equal to the bit), and one pair's flow to its
-    true flow; windows/s and the busy share (torch.profiler) of each."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from optical_flow_tpu_torch.io.sidecar import mag_csv_line
-    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
-    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
-    from optical_flow_tpu_torch.models.farneback.params import build_plan
+def corpus_clip(h: int, w: int, n_frames: int, cfg, dev):
+    """An in-memory 25 fps clip of n_frames (h, w) gray frames moving 1 px
+    per frame (`translating_clip`) and the windows extract_video takes at
+    the default step and window (300 ms): (the needed (pos, frame) in
+    order, the (index, window)s, the ExtractorConfig, the chunk of
+    `pair_chunk_for(h, w)` pairs)."""
     from optical_flow_tpu_torch.oracle.synthetic import translating_clip
     from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
 
-    fps = 25.0
     config = ExtractorConfig(farneback=cfg)
-    windows, step = extractor._window_schedule(n_frames, fps, config.step_size,
-                                               config.window_size)
+    windows, _ = extractor._window_schedule(n_frames, 25.0, config.step_size,
+                                            config.window_size)
     todo = list(enumerate(windows))
     needed = sorted({f for _, win in todo for f in win})
     dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
     clip = translating_clip(h, w, [dxs[f] for f in needed])
-    seq = list(zip(needed, clip))
-    chunk = pair_chunk_for(h, w, device=dev)
+    return list(zip(needed, clip)), todo, config, pair_chunk_for(h, w, device=dev)
+
+
+def extractor_loop(seq, todo, config, chunk: int, dev, plain: bool = False) -> dict:
+    """One run of the extractor's device loop over a corpus_clip."""
+    from optical_flow_tpu_torch.pipeline import extractor
+    return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev,
+                                    plain=plain)
+
+
+def busy_share(loop, name: str) -> dict:
+    """One profiled run of `loop` after one unprofiled: wall and device ms,
+    the busy share, the kernels launched and the host-to-device copies,
+    and the six largest device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    loop()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = device_events(prof, 1)
+    # kernels and copies; not the metrics' stage ranges, which the trace
+    # also carries on the device's timeline
+    by_name = {n: ms for n, ms in ev["by_name"].items() if not n.startswith("extract/")}
+    device_ms = sum(by_name.values())
+    require(device_ms > 0, f"{name}: no device time traced")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "kernels": ev["kernels_per_call"], "h2d_copies": ev["h2d_copies_per_call"],
+            "top_device_ms": [[n[:60], ms] for n, ms in top]}
+
+
+def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
+                               dev, power) -> None:
+    """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
+    over a `corpus_clip`: the needed frames upload one by one through
+    pinned memory, chunks of `pair_chunk_for(h, w)` pairs, two in flight.
+    Held to the plain path on the card (sums 1e-4 rel, the scaled CSV
+    line identical), to the FUSE_POLYEXP run (sums equal to the bit), and
+    one pair's flow to its true flow; windows/s and the busy share
+    (torch.profiler) of each."""
+    import torch
+    from optical_flow_tpu_torch.io.sidecar import mag_csv_line
+    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
+    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
+    from optical_flow_tpu_torch.pipeline import extractor
+
+    fps = 25.0
+    seq, todo, config, chunk = corpus_clip(h, w, n_frames, cfg, dev)
+    windows = [win for _, win in todo]
+    step = extractor._window_schedule(n_frames, fps, config.step_size,
+                                      config.window_size)[1]
+    dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
 
     def run(plain: bool = False) -> dict:
-        return extractor.extract_frames(seq, todo, config, chunk_size=chunk,
-                                        device=dev, plain=plain)
+        return extractor_loop(seq, todo, config, chunk, dev, plain)
 
     n_chunks = -(-len(todo) // chunk)
     n_levels = len(build_plan(h, w, cfg).levels)
@@ -1440,7 +1615,7 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     launches = dict(LAUNCHES)
     expected = {"K1": 3 * n_levels * n_chunks, "K2": n_levels * n_chunks,
                 "K3": (n_levels - 1) * n_chunks, "K4": 0, "K5a": 0, "K5b": 0,
-                "K6": 0, "K7": 0}
+                "K6": 0, "K7": 0, "X1": (n_levels - 1) * n_chunks, "X2": n_chunks}
     require(launches == expected, f"{name}: launches {launches} != {expected}")
     require(sorted(sums) == list(range(len(todo))), f"{name}: windows missing")
     plain = run(plain=True)
@@ -1467,7 +1642,7 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     finally:
         fused_iterate.FUSE_POLYEXP = False
     require(fused == sums, f"{name}: FUSE_POLYEXP sums != the switch-off sums")
-    require(k7_launches["K7"] == 3 * n_levels * n_chunks and k7_launches["K2"] == 0,
+    require(k7_launches == {**expected, "K1": 0, "K2": 0, "K7": 3 * n_levels * n_chunks},
             f"{name}: FUSE_POLYEXP launches {k7_launches}")
 
     # one pair against its true flow: window 1 moves by 6 px (frames 4 -> 10)
@@ -1484,38 +1659,15 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     def timed(plain: bool = False) -> float:
         return len(todo) / median_s(lambda: run(plain), warmup=1, timed=3)
 
-    def busy_share() -> dict:
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # kernels and copies; not the metrics' stage ranges, which the
-        # trace also carries on the device's timeline
-        by_name = {}
-        for e in prof.events():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)
-                    and not e.name.startswith("extract/")):
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-        device_ms = sum(by_name.values())
-        require(device_ms > 0, f"{name}: no device time traced")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        return {"wall_ms": wall_ms, "device_ms": device_ms,
-                "busy_share": device_ms / wall_ms,
-                "top_device_ms": [[n[:60], ms] for n, ms in top]}
-
     fields = {"windows_per_s": timed()}
-    fields["profiled"] = busy_share()
+    fields["profiled"] = busy_share(run, name)
     fused_iterate.FUSE_POLYEXP = True
     try:
         fields["fuse_polyexp_windows_per_s"] = timed()
     finally:
         fused_iterate.FUSE_POLYEXP = False
     fields["plain_windows_per_s"] = timed(plain=True)
-    emit(name, h=h, w=w, frames=n_frames, frames_uploaded=len(needed),
+    emit(name, h=h, w=w, frames=n_frames, frames_uploaded=len(seq),
          windows=len(todo), chunk=chunk, launches=launches,
          fuse_polyexp_launches=k7_launches,
          sums_max_rel_err_vs_plain=rel, csv_equals_plain=True,
@@ -1525,32 +1677,68 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
          **fields, card=power)
 
 
+def flow_sums_fn():
+    """The magnitude sums of a (B, H, W, 2) flow as the extractor takes
+    them: X2 on the planar flow.  In a tree from before X2 (a parent
+    profiled beside this one with --profile-only) the eager sum that
+    tree ran."""
+    import importlib.util
+    if importlib.util.find_spec("optical_flow_tpu_torch.kernels.magnitude_sum") is None:
+        from optical_flow_tpu_torch.ops.polar import magnitude
+        return lambda flow: magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
+    from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
+    return lambda flow: magnitude_sum(flow.movedim(-1, 1))
+
+
+def device_events(prof, calls: int) -> dict:
+    """Per call, from a profile: device ms by event name, the kernels
+    launched (device events other than copies and fills) and the
+    host-to-device copies."""
+    import torch
+    by_name, n_kernels, n_h2d = {}, 0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
+        if e.name.startswith("Memcpy HtoD"):
+            n_h2d += 1
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            n_kernels += 1
+    return {"by_name": by_name, "kernels_per_call": n_kernels / calls,
+            "h2d_copies_per_call": n_h2d / calls}
+
+
 def profile_phase(dev, power) -> None:
     """Where the device time of one flow call + magnitude sums goes:
     1080p B=16 under flags 0, 256 and 4, with levels=5 and with winsize
-    63, and the 8K pair (B=1), each profiled twice: torch.profiler over PROFILED calls
-    after WARMUP.  Device work is the sum of the CUDA events' device time
-    per call, its busy share that over the profiled wall time per call;
-    the largest kernels are listed by name."""
+    63, the 8K pair (B=1) and the extractor's 72x129 chunk (B=128), each
+    profiled twice: torch.profiler over PROFILED calls after WARMUP.
+    Device work is the sum of the CUDA events' device time per call, its
+    busy share that over the profiled wall time per call; every device
+    event is listed by name, largest first, beside the kernels launched
+    and the host-to-device copies per call.  Then the extractor's device
+    loop at 72x129 (`profile_extractor_corpus`): windows/s and the busy
+    share.  Package-agnostic (`flow_sums_fn`), so that --profile-only
+    can run it on a parent tree."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
-    from optical_flow_tpu_torch.ops.polar import magnitude
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
+    sums_of = flow_sums_fn()
     hd = frames(1080, 1920, dev)
     seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev)
     cells = [("profile_1080p", hd, FarnebackConfig(flags=flags), seed)
              for flags in (0, 256, 4)]
     cells += [("profile_deep_1080p", hd, FarnebackConfig(levels=5), None),
               ("profile_winsize63_1080p", hd, FarnebackConfig(winsize=WIDE_WINDOW), None),
-              ("profile_8k", frames(*WIDE, dev, 1, SHIFT_8K), FarnebackConfig(), None)]
+              ("profile_8k", frames(*WIDE, dev, 1, SHIFT_8K), FarnebackConfig(), None),
+              ("profile_72x129", frames(72, 129, dev, 128), FarnebackConfig(), None)]
     for run in range(2):
         for phase, (prev, nxt), cfg, seed in cells:
 
             def call():
-                flow = calc_flow_batched(prev, nxt, cfg, seed)
-                return magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
+                return sums_of(calc_flow_batched(prev, nxt, cfg, seed))
 
             for _ in range(WARMUP):
                 call()
@@ -1561,19 +1749,27 @@ def profile_phase(dev, power) -> None:
                     call()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) / PROFILED * 1e3
-            by_name = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / PROFILED
-            device_ms = sum(by_name.values())
+            ev = device_events(prof, PROFILED)
+            device_ms = sum(ev["by_name"].values())
             require(device_ms > 0, f"{phase} flags {cfg.flags}: no device time traced")
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+            top = sorted(ev["by_name"].items(), key=lambda kv: -kv[1])
             emit(phase, run=run, flags=cfg.flags, levels=cfg.levels, winsize=cfg.winsize,
                  batch=prev.shape[0],
                  calls=PROFILED, wall_ms_per_call=wall_ms, device_ms_per_call=device_ms,
                  busy_share=device_ms / wall_ms,
+                 kernels_per_call=ev["kernels_per_call"],
+                 h2d_copies_per_call=ev["h2d_copies_per_call"],
                  top_device_ms_per_call=[[name[:70], ms] for name, ms in top],
                  card=power)
+    for run in range(2):
+        seq, todo, config, chunk = corpus_clip(72, 129, 4000, FarnebackConfig(), dev)
+
+        def loop():
+            return extractor_loop(seq, todo, config, chunk, dev)
+
+        emit("profile_extractor_corpus", run=run, h=72, w=129, windows=len(todo),
+             chunk=chunk, windows_per_s=len(todo) / median_s(loop, warmup=1, timed=3),
+             profiled=busy_share(loop, "profile_extractor_corpus"), card=power)
 
 
 def selftest_phase(power) -> None:
@@ -1677,6 +1873,10 @@ def main(argv: list[str]) -> int:
                         help="also profile the 1080p B=16 flow call under "
                              "flags 0, 256 and 4, levels=5 and winsize 63, "
                              "and the 8K pair (PERF.md section 5)")
+    parser.add_argument("--profile-only", action="store_true",
+                        help="build and run the profile phases alone (no checks "
+                             "of the kernels or paths, no result line); runs on "
+                             "a tree from before X1 and X2 as well")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1699,6 +1899,10 @@ def main(argv: list[str]) -> int:
          device=torch.cuda.get_device_name(0), nvidia_smi=power,
          kernel_build_s=report.seconds, nvcc_runs=report.nvcc_runs,
          kernel_dir=str(_build.build_dir()))
+    if args.profile_only:
+        profile_phase(dev, power)
+        print(power)
+        return 0
     golden = json.loads(GOLDEN.read_text())
     cfg = FarnebackConfig()
 
@@ -1706,6 +1910,10 @@ def main(argv: list[str]) -> int:
     prev, nxt = frames(1080, 1920, dev)
     kernel_phases(prev, nxt, cfg, stats)
     del prev, nxt
+    torch.cuda.empty_cache()
+    kernel_x1_phase(dev, stats)
+    torch.cuda.empty_cache()
+    kernel_x2_phase(dev, stats)
     torch.cuda.empty_cache()
     e2e_phase("e2e_1080p", 1080, 1920, cfg, dev, golden, power, stats,
               golden_key="1080x1920")
@@ -1756,7 +1964,7 @@ def main(argv: list[str]) -> int:
         profile_phase(dev, power)
 
     kernels = []
-    for kid in ("K3", "K6", "K2", "K1", "K4", "K5a", "K5b", "K7"):
+    for kid in ("K3", "K6", "K2", "K1", "K4", "K5a", "K5b", "K7", "X1", "X2"):
         name, source, replaces = KERNEL_INFO[kid]
         st = stats[kid]
         require("launches" in st, f"kernel {kid} was launched on no path")

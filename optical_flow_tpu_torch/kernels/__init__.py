@@ -8,10 +8,15 @@
   K5a `update_gather.update_matrices` displaced fetch + M alone
   K5b `blur_solve.blur_solve`     box or Gaussian window sum of M + solve
   K7 `update_gather.update_blur_poly` K1 with the expansion derived in-kernel
+  X1 `resample.resample`          separable resize by tap tables: the flow's
+                                  x2 upsample, the K6 route's resize, the
+                                  seed's INTER_AREA downsample
+  X2 `magnitude_sum.magnitude_sum` per-pair sums of the flow magnitude
   `fused_iterate.update_flow` drives a level's iterations: K1 for a
   window that fits its tile, K5a -> K5b otherwise;
   `fused_iterate.update_flow_fused_poly` drives K7 where the
-  `FUSE_POLYEXP` switch sends a level to it.
+  `FUSE_POLYEXP` switch sends a level to it.  K1-K7 replace the JAX
+package's Pallas kernels; X1 and X2 the glue it leaves to XLA's fusions.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; nothing falls back from one to the other.
@@ -24,7 +29,7 @@ import functools
 import torch
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0,
-            "K7": 0}
+            "K7": 0, "X1": 0, "X2": 0}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024

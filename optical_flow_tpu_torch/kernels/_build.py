@@ -35,8 +35,9 @@ from typing import NamedTuple
 from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("blur_solve", "colorize", "gauss", "gauss_resize", "polyexp",
-           "update_blur", "update_blur_poly", "update_matrices")
+SOURCES = ("blur_solve", "colorize", "gauss", "gauss_resize", "magnitude_sum",
+           "polyexp", "resample", "update_blur", "update_blur_poly",
+           "update_matrices")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

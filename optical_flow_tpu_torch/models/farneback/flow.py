@@ -13,9 +13,11 @@ level 0), and `fused_iterate.update_flow` iterates the flow, on K1 for a
 window that fits its tile and on K5a -> K5b otherwise.  Where
 `fused_iterate.FUSE_POLYEXP` is on and K7's tile fits, a level skips K2
 and iterates on K7 from the level images instead (`update_flow_fused_poly`,
-the same flow to the bit).  Between levels the flow
-is upsampled x2 in plain PyTorch; a seed is downsampled to the coarsest
-level with INTER_AREA (`ops/resize.py:resize_area_f32`).  The BGR entries
+the same flow to the bit).  Between levels X1 `resample` upsamples the
+flow x2 with its scale in one launch; a seed is downsampled to the
+coarsest level with INTER_AREA and its scale, X1 too, read in its
+(B, H, W, 2) layout (plain: `ops/resize.py:resize_bilinear_f32`,
+`resize_area_f32`, then the multiply).  The BGR entries
 end with K4 `flow_to_bgr_planar`.  CUDA tensors go through the kernels,
 CPU tensors through their plain versions; there is no shape gate.
 """
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.kernels import fused_iterate
+from optical_flow_tpu_torch.kernels import fused_iterate, resample
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
 from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
@@ -45,13 +47,23 @@ def _level_images(frames: torch.Tensor, kern, out_w: int,
                   out_h: int) -> torch.Tensor:
     """A pyramid level from the full-resolution frames: K3 where it takes
     the level (`k3_fits`, by tap count and shapes alone), else K6 and the
-    bilinear resize, the JAX package's route for levels its fused level
+    bilinear resize (X1), the JAX package's route for levels its fused level
     kernel does not take (`flow.py:229-231`).  Both compute
     `core.gaussian_blur_resize`."""
     _, h, w = frames.shape
     if k3_fits(len(kern), h, w, out_w):
         return gauss_resize(frames, kern, out_w, out_h)
-    return resize_bilinear_f32(gaussian_blur(frames, kern), out_w, out_h)
+    return resample.resize_bilinear(gaussian_blur(frames, kern), out_w, out_h)
+
+
+def _plain_upsample(flow, w: int, h: int, scale: float) -> torch.Tensor:
+    """X1's flow upsample in plain PyTorch: the bilinear resize, * scale."""
+    return resize_bilinear_f32(flow, w, h) * scale
+
+
+def _plain_area(seed, w: int, h: int, scale: float) -> torch.Tensor:
+    """X1's seed downsample in plain PyTorch: INTER_AREA, * scale."""
+    return resize_area_f32(seed, w, h) * scale
 
 
 def _flow_pyramid(frames, plan: FarnebackPlan, plain: bool, chain: bool,
@@ -77,20 +89,23 @@ def _flow_pyramid(frames, plan: FarnebackPlan, plain: bool, chain: bool,
     `sp.update_matrices_stats` -> `sp.blur_solve`.  No K1, K3 or K7 runs,
     and the flow comes back as row blocks."""
     cfg = plan.config
-    resize_fn = resize_bilinear_f32
+    # (x, w, h, scale) -> the bilinear / INTER_AREA resize of x, * scale
+    area_fn = resample.resize_area
     if sp_kernels is not None:
         if initial_flow is not None:
             raise ValueError("the spatially sharded pyramid takes no seed")
         level_fn, poly_fn, iterate_fn = (sp_kernels.level_images,
                                          sp_kernels.poly_exp,
                                          sp_kernels.update_flow)
-        resize_fn = sp_kernels.resize_bilinear
+        upsample_fn = sp_kernels.resize_bilinear
     elif plain:
         level_fn, poly_fn, iterate_fn = (core.gaussian_blur_resize,
                                          core.poly_exp, core.update_flow)
+        upsample_fn, area_fn = _plain_upsample, _plain_area
     else:
         level_fn, poly_fn, iterate_fn = (_level_images, poly_exp,
                                          fused_iterate.update_flow)
+        upsample_fn = resample.resize_bilinear
     B = frames.shape[0] - 1 if chain else frames.shape[0] // 2
     # K7 takes the level images and derives R in the step (no K2 launch)
     poly_fused = (not plain and sp_kernels is None
@@ -111,15 +126,15 @@ def _flow_pyramid(frames, plan: FarnebackPlan, plain: bool, chain: bool,
             R = poly_fn(imgs, cfg.poly_n, cfg.poly_sigma, pre_taps=pre)
         if flow is None and initial_flow is not None:
             scale = float(np.float32(cfg.pyr_scale ** lv.k))
-            flow = resize_area_f32(initial_flow, lv.width, lv.height) * scale
+            flow = area_fn(initial_flow, lv.width, lv.height, scale)
         elif flow is None and sp_kernels is not None:
             flow = sp_kernels.zeros((B, 2, lv.height, lv.width), frames)
         elif flow is None:
             flow = torch.zeros((B, 2, lv.height, lv.width),
                                dtype=torch.float32, device=frames.device)
         else:
-            flow = resize_fn(flow, lv.width, lv.height)
-            flow = flow * float(np.float32(1.0 / cfg.pyr_scale))
+            flow = upsample_fn(flow, lv.width, lv.height,
+                               float(np.float32(1.0 / cfg.pyr_scale)))
         if poly_fused:
             img0, img1 = (imgs[:-1], imgs[1:]) if chain else (imgs[:B], imgs[B:])
             flow = fused_iterate.update_flow_fused_poly(
@@ -165,8 +180,9 @@ def _chain_batch(frames, device) -> torch.Tensor:
 
 def _seed(initial_flow, config: FarnebackConfig, B: int, h: int, w: int,
           device) -> torch.Tensor | None:
-    """The (B, H, W, 2) seed as a (B, 2, H, W) f32 tensor on `device`, when
-    the flags ask for one (JAX `flow.py:532-536`); None otherwise."""
+    """The (B, H, W, 2) seed as a (B, 2, H, W) f32 view on `device` (the
+    seed's own layout, which X1 reads in place), when the flags ask for
+    one (JAX `flow.py:532-536`); None otherwise."""
     if not config.use_initial_flow:
         return None
     if initial_flow is None:
@@ -177,7 +193,7 @@ def _seed(initial_flow, config: FarnebackConfig, B: int, h: int, w: int,
     if tuple(seed.shape) != (B, h, w, 2):
         raise ValueError(f"initial_flow has shape {tuple(seed.shape)}, "
                          f"expected {(B, h, w, 2)}")
-    return seed.to(device, torch.float32).movedim(-1, 1).contiguous()
+    return seed.to(device, torch.float32).movedim(-1, 1)
 
 
 def _flow(frames: torch.Tensor, config: FarnebackConfig, plain: bool,

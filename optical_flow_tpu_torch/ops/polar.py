@@ -45,6 +45,15 @@ def magnitude(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(s.double()).float()
 
 
+def magnitude_sums(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per frame, the sum of `magnitude(x, y)` over the last two axes:
+    `np.sum(mag)` of the reference's extractor (`optical_flow.py:64`).
+    Summed in f64 and rounded to f32 once, so the order the f64 sum takes
+    moves the result by at most one f32 ulp (the plain version of X2,
+    `kernels/magnitude_sum.py`)."""
+    return magnitude(x, y).double().sum(dim=(-2, -1)).float()
+
+
 def cart_to_polar(x: torch.Tensor, y: torch.Tensor):
     """cv2.cartToPolar(x, y): (magnitude, angle-in-radians [0, 2*pi))."""
     return magnitude(x, y), fast_atan2_deg(y, x) * _DEG2RAD

@@ -9,9 +9,12 @@ tensor's device, used by no pipeline, as in the JAX package.  Bilinear:
 half-pixel centres and edge clamp; the pyramid uses it for the x2 flow
 upsample between levels, and it is the second half of the plain version
 of the `gauss_resize` kernel.  INTER_AREA: the seeded entry's downsample
-of the initial flow.  Both run in plain PyTorch on every device, as the
-JAX package leaves them to plain XLA, and neither goes through a matrix
-product, so no TF32 setting changes them.
+of the initial flow.  Both are plain PyTorch, as the JAX package leaves
+them to plain XLA, and neither goes through a matrix product, so no TF32
+setting changes them.  On a card the pyramid runs them on X1
+(`kernels/resample.py`), which reads the per-axis tap tables built here
+(`bilinear_taps`, `_area_taps`, `unit_taps`); `resample_taps` is X1's
+table loop in plain PyTorch, equal to the bit to the resizes above.
 """
 
 from __future__ import annotations
@@ -88,6 +91,61 @@ def coeff_tensors(s_len: int, d_len: int, device: torch.device):
             torch.as_tensor(t, device=device))
 
 
+@functools.lru_cache(maxsize=256)
+def bilinear_taps(s_len: int, d_len: int):
+    """`_coeffs_f32` as a tap table: (index, weight) columns, each (d_len,
+    2), int32 and f32: (s0, s1) weighted (f32(1 - t), t), the f32
+    subtraction `bilinear_rows` makes."""
+    s0, s1, t = _coeffs_f32(s_len, d_len)
+    return (np.stack([s0, s1], 1).astype(np.int32),
+            np.stack([np.float32(1.0) - t, t], 1).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def unit_taps(n: int):
+    """The table of an axis a pass leaves alone: one tap a sample, itself,
+    weight 1 (x * 1.0 is x, whatever x is)."""
+    return (np.arange(n, dtype=np.int32)[:, None], np.ones((n, 1), np.float32))
+
+
+def resample_taps(src: torch.Tensor, ytaps, xtaps, vertical_first: bool,
+                  scale: float = 1.0) -> torch.Tensor:
+    """X1's function in plain PyTorch: src (..., H, W) resampled by the
+    tap tables ytaps (dh, Ty) and xtaps (dw, Tx), each an (index, weight)
+    pair of tensors on src's device, then `* scale`; f32 (..., dh, dw).
+
+    The kernel's loop, output by output: for each tap of the second axis,
+    the first axis's sum over its taps, each sum starting from its first
+    term and adding the others in table order; the first-pass values each
+    output needs are made for it, as the kernel makes them.  So
+    `resample_taps(x, bilinear_taps(H, dh), bilinear_taps(W, dw), False,
+    s)` equals `resize_bilinear_f32(x, dw, dh) * s` and the area tables
+    vertical first `resize_area_f32(x, dw, dh) * s`, to the bit."""
+    (iy, wy), (ix, wx) = ytaps, xtaps
+    iy, ix = iy.long(), ix.long()
+    src = src.float()
+    acc = None
+    if vertical_first:
+        for i in range(ix.shape[1]):
+            cols = src.index_select(-1, ix[:, i])
+            v = None
+            for j in range(iy.shape[1]):
+                term = cols.index_select(-2, iy[:, j]) * wy[:, j, None]
+                v = term if v is None else v + term
+            term = v * wx[:, i]
+            acc = term if acc is None else acc + term
+    else:
+        for j in range(iy.shape[1]):
+            rows = src.index_select(-2, iy[:, j])
+            h = None
+            for i in range(ix.shape[1]):
+                term = rows.index_select(-1, ix[:, i]) * wx[:, i]
+                h = term if h is None else h + term
+            term = h * wy[:, j, None]
+            acc = term if acc is None else acc + term
+    return acc * scale
+
+
 def bilinear_rows(src: torch.Tensor, dw: int, sy0: torch.Tensor,
                   sy1: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
     """resize_bilinear_f32's two passes with the vertical tables given:
@@ -122,20 +180,29 @@ def resize_u8_cv(src: torch.Tensor, dw: int, dh: int,
     sh, sw = src.shape[h_ax], src.shape[w_ax]
     if (dw, dh) == (sw, sh):
         return src
-    dev = src.device
-    sx0, sx1, ax0, ax1 = (torch.as_tensor(a, device=dev) for a in _coeffs_u8(sw, dw))
-    sy0, sy1, by0, by1 = (torch.as_tensor(a, device=dev) for a in _coeffs_u8(sh, dh))
+    sx0, sx1, ax0, ax1 = _u8_coeff_tensors(sw, dw, src.device)
+    sy0, sy1, by0, by1 = _u8_coeff_tensors(sh, dh, src.device)
     s = src.to(torch.int32)
     shape_w = [1] * s.dim()
     shape_w[w_ax] = dw
-    row = (s.index_select(w_ax, sx0.long()) * ax0.reshape(shape_w)
-           + s.index_select(w_ax, sx1.long()) * ax1.reshape(shape_w))
-    r0 = row.index_select(h_ax, sy0.long()) >> 4
-    r1 = row.index_select(h_ax, sy1.long()) >> 4
+    row = (s.index_select(w_ax, sx0) * ax0.reshape(shape_w)
+           + s.index_select(w_ax, sx1) * ax1.reshape(shape_w))
+    r0 = row.index_select(h_ax, sy0) >> 4
+    r1 = row.index_select(h_ax, sy1) >> 4
     shape_h = [1] * s.dim()
     shape_h[h_ax] = dh
     acc = ((by0.reshape(shape_h) * r0) >> 16) + ((by1.reshape(shape_h) * r1) >> 16)
     return ((acc + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=256)
+def _u8_coeff_tensors(s_len: int, d_len: int, device: torch.device):
+    """`_coeffs_u8`'s (s0, s1, a0, a1) on `device`, int64 indices and
+    int32 weights, made once per (lengths, device) as `coeff_tensors`."""
+    s0, s1, a0, a1 = _coeffs_u8(s_len, d_len)
+    return (torch.as_tensor(s0, device=device).long(),
+            torch.as_tensor(s1, device=device).long(),
+            torch.as_tensor(a0, device=device), torch.as_tensor(a1, device=device))
 
 
 def resize_frame_u8(frame: torch.Tensor, frame_width: int) -> torch.Tensor:
@@ -191,10 +258,17 @@ def _area_taps(s_len: int, d_len: int):
     return idx, wt
 
 
+@functools.lru_cache(maxsize=128)
+def _area_tensors(s_len: int, d_len: int, device: torch.device):
+    """`_area_taps` on `device`, made once per (lengths, device)."""
+    idx, wt = _area_taps(s_len, d_len)
+    return torch.as_tensor(idx, device=device), torch.as_tensor(wt, device=device)
+
+
 def _area_along(src: torch.Tensor, dim: int, taps) -> torch.Tensor:
     """Weighted sum of each output's source taps along `dim` (-2 or -1),
     in f32, tap by tap in increasing source index."""
-    idx, wt = (torch.as_tensor(a, device=src.device) for a in taps)
+    idx, wt = taps
     shape = (-1, 1) if dim == -2 else (-1,)
     out = None
     for t in range(idx.shape[1]):
@@ -214,13 +288,12 @@ def resize_area_f32(src: torch.Tensor, dw: int, dh: int) -> torch.Tensor:
     if (dw, dh) == (sw, sh):
         return src
     out = src.float()
-    ty, tx = _area_taps(sh, dh), _area_taps(sw, dw)
-    if ty is not None:
-        out = _area_along(out, -2, ty)
+    if _area_taps(sh, dh) is not None:
+        out = _area_along(out, -2, _area_tensors(sh, dh, src.device))
     elif dh != sh:
         out = resize_bilinear_f32(out, out.shape[-1], dh)
-    if tx is not None:
-        out = _area_along(out, -1, tx)
+    if _area_taps(sw, dw) is not None:
+        out = _area_along(out, -1, _area_tensors(sw, dw, src.device))
     elif dw != sw:
         out = resize_bilinear_f32(out, dw, out.shape[-2])
     return out

@@ -30,8 +30,9 @@ input is gathered on the group's first device, the SAME kernel runs on
 the whole array, and the result is split back; the plain PyTorch version
 never stands in for a kernel on a card.  Blocks stay on their devices
 from stage to stage otherwise.  The resizes between levels run per block
-on the source rows each output block reads (at most one row from a
-neighbour), equal to the bit to the one-device resize.  The split of a
+(X1, `kernels/resample.py:bilinear_rows`) on the source rows each output
+block reads (at most one row from a neighbour), equal to the bit to the
+one-device resize.  The split of a
 height into blocks is always `torch.tensor_split`'s.
 
 The displaced-fetch update decomposes by JAX's three observations:
@@ -68,7 +69,8 @@ from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.kernels.update_gather import update_matrices
 from optical_flow_tpu_torch.models.farneback.core import border_axis_weights
-from optical_flow_tpu_torch.ops.resize import _coeffs_f32, bilinear_rows, coeff_tensors
+from optical_flow_tpu_torch.kernels import resample
+from optical_flow_tpu_torch.ops.resize import _coeffs_f32
 
 # The update's halo depth: JAX's `pallas/update_gather.py` WIN_H, the TPU
 # kernel's row window.  The card's K5a has no window; the constant stays
@@ -326,13 +328,14 @@ class HaloKernels:
             flow = self.blur_solve(M, winsize, gaussian)
         return flow
 
-    def resize_bilinear(self, x: Blocks, dw: int, dh: int) -> Blocks:
-        """`ops/resize.py:resize_bilinear_f32` per output block, on the
-        source rows that block reads (its own and at most a row from each
-        neighbour), to the bit."""
+    def resize_bilinear(self, x: Blocks, dw: int, dh: int, scale: float = 1.0) -> Blocks:
+        """`ops/resize.py:resize_bilinear_f32` per output block, then `*
+        scale`: X1 on the source rows each block reads (its own and at most
+        a row from each neighbour) with the frame's vertical table shifted
+        to them, to the bit."""
         sh, sw = x.height, x.shape[-1]
         if (dw, dh) == (sw, sh):
-            return x
+            return x if scale == 1.0 else x * scale
         s0, s1, _ = _coeffs_f32(sh, dh)
         parts, a = [], 0
         for size, dev in zip(_split_sizes(dh, len(x.parts)), x.devices):
@@ -342,9 +345,8 @@ class HaloKernels:
                                          device=dev))
                 continue
             lo, hi = int(s0[a]), int(s1[b - 1]) + 1
-            sy0, sy1, ty = coeff_tensors(sh, dh, dev)
-            parts.append(bilinear_rows(x.rows(lo, hi, dev).float(), dw,
-                                       sy0[a:b] - lo, sy1[a:b] - lo, ty[a:b]))
+            parts.append(resample.bilinear_rows(x.rows(lo, hi, dev), dw, sh, dh, a, b,
+                                                lo, scale))
             a = b
         return Blocks(parts)
 

@@ -25,11 +25,9 @@ with no tiers to count.
 
 Every per-pair computation here is independent of how the batch is
 split, so the flow and the BGR equal the one-device entries' to the bit.
-PyTorch's sum over (H, W) is not: how it splits the reduction depends on
-the batch count (on the card, the sums of 17 pairs differ from those of
-9 + 8 in the last bits).  So the magnitude sums gather the per-pixel
-magnitudes on the first device and reduce them there as one batch, as
-`pipeline/extractor.py:magnitude_sums` does.
+The magnitude sums too: X2 (`kernels/magnitude_sum.py`) sums each pair in
+an order fixed by (H, W) alone, so each shard sums its own pairs and the
+(B,) sums are gathered.
 """
 
 from __future__ import annotations
@@ -40,10 +38,10 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels.colorize import flow_to_bgr_planar
+from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.models.farneback.flow import (_flow_pyramid,
                                                           _on_device)
 from optical_flow_tpu_torch.models.farneback.params import build_plan
-from optical_flow_tpu_torch.ops.polar import magnitude
 from optical_flow_tpu_torch.parallel.halo import Blocks, HaloKernels
 from optical_flow_tpu_torch.utils.config import FarnebackConfig
 from optical_flow_tpu_torch.utils.device import default_device, resolve_device
@@ -158,18 +156,19 @@ def sharded_flow_step(mesh: Mesh, prev, nxt,
     return _gather(flows, _first(mesh)).movedim(1, -1)
 
 
-def _magnitudes(mesh: Mesh, prev, nxt, config: FarnebackConfig,
-                nan_check: bool = False):
-    """(B, H, W) f32 flow magnitudes on the mesh's first device, and with
-    nan_check a device bool: whether every flow component is finite."""
-    mags, finite = [], []
+def _shard_magnitude_sums(mesh: Mesh, prev, nxt, config: FarnebackConfig,
+                          nan_check: bool = False):
+    """(B,) f32 sums of the flow magnitude per pair on the mesh's first
+    device, each shard's summed by X2 on its device, and with nan_check a
+    device bool: whether every flow component is finite."""
+    sums, finite = [], []
     for f in _shard_flows(mesh, prev, nxt, config):
-        mags.append(magnitude(f[:, 0], f[:, 1]))
+        sums.append(magnitude_sum(f))
         if nan_check:
             finite.append(torch.isfinite(f).all())
     dev = _first(mesh)
     ok = torch.stack([t.to(dev) for t in finite]).all() if nan_check else None
-    return _gather(mags, dev), ok
+    return _gather(sums, dev), ok
 
 
 def sharded_extract_step(mesh: Mesh, prev, nxt,
@@ -177,7 +176,7 @@ def sharded_extract_step(mesh: Mesh, prev, nxt,
     """The extractor's device step: (B, H, W) pairs -> (B,) summed
     magnitudes (`np.sum(mag)` of `optical_flow.py:64`), dp+sp sharded, on
     the mesh's first device; equal to magnitude_sums'."""
-    return _magnitudes(mesh, prev, nxt, config)[0].sum(dim=(-2, -1))
+    return _shard_magnitude_sums(mesh, prev, nxt, config)[0]
 
 
 def sharded_bgr_step(mesh: Mesh, prev, nxt,

@@ -43,11 +43,12 @@ import torch
 from optical_flow_tpu_torch.io.sidecar import (DoneSentinel, ShotProgress,
                                                write_mag_to_csv)
 from optical_flow_tpu_torch.io.video import VFRStreamError, VideoReader
+from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+from optical_flow_tpu_torch.ops import polar
 from optical_flow_tpu_torch.ops.host import bgr2gray_host, resize_gray_host
-from optical_flow_tpu_torch.ops.polar import magnitude
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
-from optical_flow_tpu_torch.parallel.mesh import Mesh, _magnitudes, make_mesh
+from optical_flow_tpu_torch.parallel.mesh import Mesh, _shard_magnitude_sums, make_mesh
 from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
                                                       pair_chunk_for, upload)
 from optical_flow_tpu_torch.utils.config import (EXTRACTOR, ExtractorConfig,
@@ -87,13 +88,18 @@ def magnitude_sums(prev, nxt, config: FarnebackConfig = FarnebackConfig(),
     on the device: `np.sum(mag)` of the reference's
     `calculate_optical_flow` (`optical_flow.py:49-66`), batched.  The
     magnitude is cart_to_polar's; its angle, which the sum does not read,
-    is not computed.  `device` and `plain` as in calc_flow_batched."""
+    is not computed.  Each pair's magnitudes are summed in f64 and
+    rounded to f32 once: by X2 on a card, by `ops/polar.py:magnitude_sums`
+    on the CPU and with `plain`.  `device` and `plain` as in
+    calc_flow_batched."""
     return _flow_and_sums(prev, nxt, config, device=device, plain=plain)[1]
 
 
 def _flow_and_sums(prev, nxt, config: FarnebackConfig, *, device, plain: bool):
     flow = calc_flow_batched(prev, nxt, config, device=device, plain=plain)
-    return flow, magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
+    if plain:
+        return flow, polar.magnitude_sums(flow[..., 0], flow[..., 1])
+    return flow, magnitude_sum(flow.movedim(-1, 1))
 
 
 @functools.lru_cache(maxsize=8)
@@ -118,10 +124,9 @@ def _sharded_magnitude_sums(mesh: Mesh, prev_batch, next_batch,
     """The mesh branch of the JAX package's `_magnitude_sums`
     (`extractor.py:96-110`): the batch padded to a multiple of the mesh's
     devices by repeating the last pair, `sharded_extract_step`'s shards,
-    and the first b pairs' sums, on the mesh's first device.  The
-    magnitudes of the b pairs are reduced as one batch, as on one device,
-    so the sums are those of `_magnitude_sums` without a mesh to the bit
-    (a padded batch would reduce differently).  (sums, finite) as
+    and the first b pairs' sums, on the mesh's first device.  Each pair's
+    sum depends on that pair alone (X2), so the sums are those of
+    `_magnitude_sums` without a mesh to the bit.  (sums, finite) as
     `_magnitude_sums`."""
     prev_batch, next_batch = torch.as_tensor(prev_batch), torch.as_tensor(next_batch)
     n = mesh.devices.size
@@ -130,9 +135,9 @@ def _sharded_magnitude_sums(mesh: Mesh, prev_batch, next_batch,
     if pad:
         prev_batch = torch.cat([prev_batch, prev_batch[-1:].expand(pad, *prev_batch.shape[1:])])
         next_batch = torch.cat([next_batch, next_batch[-1:].expand(pad, *next_batch.shape[1:])])
-    mags, finite = _magnitudes(mesh, prev_batch, next_batch, config.farneback,
-                               nan_check)
-    return mags[:b].sum(dim=(-2, -1)), finite
+    sums, finite = _shard_magnitude_sums(mesh, prev_batch, next_batch,
+                                         config.farneback, nan_check)
+    return sums[:b], finite
 
 
 def _magnitude_sums(prev_batch, next_batch, config: ExtractorConfig, *, device,

@@ -34,6 +34,14 @@ Two groups the JAX self test lacks:
   fused_poly/*        K7 (`update_flow_fused_poly`) at fused_iterate's
                       shapes and spills, against its plain version;
   fused_poly_k2k1/*   the same K7 against K2 -> K1, to the bit;
+  resample/*          X1 (`kernels/resample.py`): the flow's x2 upsample
+                      with its scale, the seed's INTER_AREA downsample
+                      read in its (B, H, W, 2) layout, one with an axis
+                      that grows (two launches), a halo block's rows;
+                      equal to the plain resize times the scale, to the
+                      bit;
+  magnitude_sum/*     X2 (`kernels/magnitude_sum.py`), within one f32 ulp
+                      of the plain f64 sum (gate "ulp");
   pyramid/vertical_jump_1080x1920
                       `calc_flow_batched` at the default config on
                       `vertical_jump_pair(1080, 1920)`, B=2 (strips that
@@ -73,13 +81,15 @@ from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow_fused,
                                                           update_flow_fused_poly)
 from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize
+from optical_flow_tpu_torch.kernels import resample
+from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
 from optical_flow_tpu_torch.kernels.update_gather import (update_blur,
                                                           update_matrices)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
 from optical_flow_tpu_torch.models.farneback.params import gaussian_kernel
-from optical_flow_tpu_torch.ops import colorize
+from optical_flow_tpu_torch.ops import colorize, polar, resize
 from optical_flow_tpu_torch.oracle.synthetic import vertical_jump_pair
 from optical_flow_tpu_torch.utils.device import resolve_device
 
@@ -106,7 +116,7 @@ class Case:
     plain: Callable[..., torch.Tensor]
     cuda: Callable[..., torch.Tensor]
     against: Optional[Callable[..., torch.Tensor]] = None
-    gate: str = "close"        # "close", "bytes" (K4) or "flow" (pyramid)
+    gate: str = "close"        # "close", "bytes" (K4), "ulp" (X2) or "flow" (pyramid)
 
 
 # --- inputs, drawn as the JAX cases draw them -------------------------------
@@ -365,7 +375,45 @@ def _cases(quick: bool = False) -> List[Case]:
         lambda: _jump_inputs(1080, 1920),
         lambda prev, nxt: calc_flow_batched(prev, nxt, plain=True),
         lambda prev, nxt: calc_flow_batched(prev, nxt), gate="flow")
+
+    # the glue the JAX package leaves to XLA: X1 to the bit, X2 within 1 ulp
+    add("resample/upsample_x2_67x121", "X1", 0.0, 0.0,
+        lambda: {"flow": _flow_field((2, 2, 67, 121), 21)},
+        lambda flow: resize.resize_bilinear_f32(flow, 242, 134) * 2.0,
+        lambda flow: resample.resize_bilinear(flow, 242, 134, 2.0))
+    add("resample/area_seed_strided_96x128", "X1", 0.0, 0.0,
+        lambda: {"seed": _flow_field((2, 96, 128, 2), 22)},
+        lambda seed: resize.resize_area_f32(seed.movedim(-1, 1), 16, 12) * 0.125,
+        lambda seed: resample.resize_area(seed.movedim(-1, 1), 16, 12, 0.125))
+    add("resample/area_grow_10x40", "X1", 0.0, 0.0,
+        lambda: {"seed": _flow_field((2, 10, 40, 2), 23)},
+        lambda seed: resize.resize_area_f32(seed.movedim(-1, 1), 10, 20) * 0.5,
+        lambda seed: resample.resize_area(seed.movedim(-1, 1), 10, 20, 0.5))
+    add("resample/halo_rows_135x240", "X1", 0.0, 0.0,
+        lambda: {"flow": _flow_field((2, 2, 135, 240), 24)},
+        lambda flow: _halo_rows(flow, plain=True), lambda flow: _halo_rows(flow, plain=False))
+    add("magnitude_sum/pairs_7_72x129", "X2", 0.0, 2.0 ** -23,
+        lambda: {"flow": _flow_field((7, 2, 72, 129), 25)},
+        lambda flow: polar.magnitude_sums(flow[:, 0], flow[:, 1]), magnitude_sum,
+        gate="ulp")
     return cases
+
+
+def _flow_field(shape, seed) -> np.ndarray:
+    """A random f32 flow of up to 6 px, from default_rng(seed)."""
+    return ((np.random.default_rng(seed).random(shape) - 0.5) * 12).astype(np.float32)
+
+
+def _halo_rows(flow, plain: bool, a: int = 90, b: int = 180):
+    """Output rows [a, b) of the (135 -> 270) x2 upsample with its scale
+    from the source rows they read, as a halo block resizes them."""
+    s0, s1, _ = resize._coeffs_f32(135, 270)
+    lo, hi = int(s0[a]), int(s1[b - 1]) + 1
+    src = flow[..., lo:hi, :]
+    if plain:
+        sy0, sy1, ty = resize.coeff_tensors(135, 270, flow.device)
+        return resize.bilinear_rows(src, 480, sy0[a:b] - lo, sy1[a:b] - lo, ty[a:b]) * 2.0
+    return resample.bilinear_rows(src, 480, 135, 270, a, b, lo, 2.0)
 
 
 # --- the pyramid on vertical_jump_pair ---------------------------------------
@@ -406,6 +454,11 @@ def _compare(case: Case, out: torch.Tensor, ref: torch.Tensor) -> dict:
                 "mismatched_frac": frac,
                 "ok": bool(int(diff.max()) <= BYTE_MAX and frac <= BYTE_SHARE)}
     err = (out - ref).abs()
+    if case.gate == "ulp":
+        # sums of magnitudes: non-negative f32, ordered as their bits
+        ulps = (out.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
+        return {"max_abs_diff": float(err.max()), "max_ulps": int(ulps.max()),
+                "ok": bool(int(ulps.max()) <= 1)}
     within = err <= case.atol + case.rtol * ref.abs()
     entry = {"max_abs_diff": float(err.max()), "atol": case.atol, "rtol": case.rtol}
     if case.gate == "flow":

@@ -56,7 +56,7 @@ import torch
 from optical_flow_tpu_torch.kernels import _build
 from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow_batched, calc_flow_bgr_chain_batched)
-from optical_flow_tpu_torch.ops.polar import magnitude
+from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
 from optical_flow_tpu_torch.parallel.mesh import chain_shards, sharded_bgr_chain_step
 from optical_flow_tpu_torch.pipeline.extractor import _dp_mesh, _magnitude_sums
@@ -105,7 +105,7 @@ def warmup_flow(h: int, w: int, batch: Optional[int] = None,
 
     def step():
         flow = calc_flow_batched(z, z, config)
-        float(magnitude(flow[..., 0], flow[..., 1]).sum())
+        float(magnitude_sum(flow.movedim(-1, 1)).sum())
 
     info = _launch(device, (b, h, w), step)
     logger.info("warmed the flow for %s: %s", (b, h, w), info)

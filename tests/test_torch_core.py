@@ -214,7 +214,8 @@ def test_wrappers_on_cpu_are_the_plain_versions():
                            tcore.update_step_poly(img[:1], img[1:], flow[:1], 15, gaussian,
                                                   5, 1.2, PRE_TAPS))
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,
+                                "X1": 0, "X2": 0}
 
 
 def _jax_gauss_sum(M, winsize):

@@ -49,7 +49,9 @@ from optical_flow_tpu_torch.kernels.fused_iterate import (update_flow,
                                                           update_flow_unfused)
 from optical_flow_tpu_torch.kernels.gauss import gaussian_blur
 from optical_flow_tpu_torch.kernels.gauss_resize import gauss_resize, k3_fits
+from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.kernels.polyexp import poly_exp
+from optical_flow_tpu_torch.kernels.resample import area_plan, resize_bilinear
 from optical_flow_tpu_torch.kernels.update_gather import (k1_fits, k7_fits,
                                                           update_blur,
                                                           update_blur_poly,
@@ -203,7 +205,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         blur_solve(R.double(), 15, True)
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0}
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,
+                                "X1": 0, "X2": 0}
 
 
 @pytest.mark.parametrize("dtype", ["u8", "f32"])
@@ -262,13 +265,14 @@ def test_main_path_on_the_card_matches_the_cpu(dev, h, w, pair):
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 0, "K5a": 0, "K5b": 0,
-                                "K6": 0, "K7": 0}
+                                "K6": 0, "K7": 0, "X1": n_levels - 1, "X2": 0}
     ref = calc_flow_batched(prev, nxt, device="cpu")
     d = (got.cpu() - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
     assert float(d.mean()) <= 1e-3
     sums = magnitude_sums(torch.as_tensor(prev).to(dev),
                           torch.as_tensor(nxt).to(dev), FarnebackConfig())
+    assert kernels.LAUNCHES["X2"] == 1
     torch.testing.assert_close(sums.cpu(), magnitude_sums(prev, nxt, device="cpu"),
                                rtol=1e-4, atol=0.0)
 
@@ -342,7 +346,7 @@ def test_chain_on_the_card(dev, h, w):
     n_levels = kernels.LAUNCHES["K2"]
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 1, "K5a": 0, "K5b": 0,
-                                "K6": 0, "K7": 0}
+                                "K6": 0, "K7": 0, "X1": n_levels - 1, "X2": 0}
     ref = calc_flow_bgr_chain_batched(frames, device="cpu").numpy()
     d = np.abs(bgr.cpu().numpy().astype(np.int32) - ref.astype(np.int32))
     assert d.max() <= 1
@@ -397,7 +401,8 @@ def test_blur_solve_kernel(dev, h, w, winsize, gaussian):
            core.update_flow(R0, R1, flow, winsize, 3, gaussian), STEP_TOL)
     assert torch.equal(flow, kept)            # the caller's flow is not written
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                "K5a": 3, "K5b": 4, "K6": 0, "K7": 0}
+                                "K5a": 3, "K5b": 4, "K6": 0, "K7": 0,
+                                "X1": 0, "X2": 0}
 
 
 @pytest.mark.parametrize("winsize", [1, 3, 10, 15, 21, 61])
@@ -466,10 +471,15 @@ def test_unfused_path_on_the_card_matches_the_cpu(dev, h, w, flags, winsize):
     n_levels = kernels.LAUNCHES["K2"]
     steps = 3 * n_levels
     k1 = k1_fits(winsize)
+    coarsest = build_plan(h, w, cfg).levels[0]
+    # the upsamples, and the seed's INTER_AREA downsample where flags has 4
+    x1 = n_levels - 1 + (len(area_plan(h, w, coarsest.height, coarsest.width))
+                         if cfg.use_initial_flow else 0)
     assert kernels.LAUNCHES == {"K1": steps if k1 else 0, "K2": n_levels,
                                 "K3": n_levels - 1, "K4": 0,
                                 "K5a": 0 if k1 else steps,
-                                "K5b": 0 if k1 else steps, "K6": 0, "K7": 0}
+                                "K5b": 0 if k1 else steps, "K6": 0, "K7": 0,
+                                "X1": x1, "X2": 0}
     _share_close(got, calc_flow_batched(prev, nxt, cfg, seed, device="cpu"))
 
 
@@ -517,7 +527,8 @@ def test_deep_configs_on_the_card_match_the_plain_path(dev, h, w, config):
     n_k6 = _k6_levels(h, w, cfg)
     assert kernels.LAUNCHES == {"K1": 3 * n_levels, "K2": n_levels,
                                 "K3": n_levels - 1 - n_k6, "K4": 0, "K5a": 0,
-                                "K5b": 0, "K6": n_k6, "K7": 0}
+                                "K5b": 0, "K6": n_k6, "K7": 0,
+                                "X1": n_levels - 1 + n_k6, "X2": 0}
     _share_close(got, calc_flow_batched(prev, nxt, cfg, plain=True))
 
 
@@ -725,7 +736,8 @@ def test_fuse_polyexp_switch_on_the_card(dev, monkeypatch, flags, chain):
     torch.cuda.synchronize()
     n_levels = len(build_plan(96, 128, cfg).levels)
     assert kernels.LAUNCHES == {"K1": 0, "K2": 0, "K3": n_levels - 1, "K4": 0,
-                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 3 * n_levels}
+                                "K5a": 0, "K5b": 0, "K6": 0, "K7": 3 * n_levels,
+                                "X1": n_levels - 1, "X2": 0}
     assert torch.equal(on, off)
 
 
@@ -939,7 +951,7 @@ def test_selftest_on_the_card(dev):
     failed = [c for c in verdict["cases"] if not c["ok"]]
     assert verdict["ok"] and not failed, failed
     assert verdict["kernels"] is True and verdict["device"] == "cuda"
-    assert verdict["n_cases"] == 48
+    assert verdict["n_cases"] == 53
     assert all(kernels.LAUNCHES[k] > 0 for k in kernels.LAUNCHES), kernels.LAUNCHES
 
 
@@ -1040,7 +1052,7 @@ def test_mesh_sp_on_one_card(dev):
     flow = sharded_flow_step(mesh, prev, nxt)
     launches = dict(kernels.LAUNCHES)
     assert launches["K1"] == launches["K3"] == launches["K7"] == 0, launches
-    assert all(launches[k] > 0 for k in ("K2", "K5a", "K5b", "K6")), launches
+    assert all(launches[k] > 0 for k in ("K2", "K5a", "K5b", "K6", "X1")), launches
     ref = calc_flow_batched(prev, nxt)
     d = (flow - ref).abs()
     assert float((d <= 2e-3 + 1e-3 * ref.abs()).float().mean()) >= 0.999
@@ -1075,6 +1087,8 @@ def test_launch_leaves_the_current_device(dev):
         blur_solve(update_matrices(R[:1], R[1:], flow), 15, False)
         update_blur_poly(img[:1], img[1:], flow, 15, False, 5, 1.2)
         flow_to_bgr_planar(torch.ones((1, 2, 40, 64), device=dev))
+        resize_bilinear(flow, 128, 80, 2.0)
+        magnitude_sum(flow)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == last
         assert all(kernels.LAUNCHES[k] == 1 for k in kernels.LAUNCHES), kernels.LAUNCHES
@@ -1140,3 +1154,145 @@ def test_mesh_across_the_visible_cards(dev):
         *(Blocks.split(t, cards) for t in (R0, R1, fl)))
     assert [p.device for p in M.parts] == cards
     _close(M.gather(dev), update_matrices(R0, R1, fl), STENCIL_TOL)
+
+
+# --- X1 resample and X2 magnitude sum ----------------------------------------
+
+def _bit_equal(got, ref) -> bool:
+    """Equal to the bit, NaNs at the same places (a NaN's payload aside)."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    return (tuple(got.shape) == tuple(ref.shape) and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                            ref.masked_fill(nan, 0).view(torch.int32)))
+
+
+def _odd_values(x):
+    """NaN and +-inf at a few places of an (N, C, H, W) tensor, pixel
+    (0, 0) among them (where an area table's zero-weight pads point)."""
+    x = x.clone()
+    x[0, 0, 0, 0] = float("nan")
+    x[-1, -1, 0, 0] = float("inf")
+    x[0, -1, x.shape[2] // 2, x.shape[3] // 3] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("n,h,w,dh,dw,scale", [
+    (16, 135, 240, 270, 480, 2.0),          # the 1080p pyramid's x2 steps
+    (16, 270, 480, 540, 960, 2.0),
+    (4, 540, 960, 1080, 1920, 2.0),
+    (2, 540, 959, 1079, 1917, 2.0),         # odd sizes
+    (2, 1, 37, 2, 74, 2.0), (2, 37, 1, 74, 2, 2.0),    # 1-tall and 1-wide
+    (2, 37, 53, 37, 106, 4.0),              # an axis that keeps its size
+    (32, 1080, 1920, 68, 120, 1.0),         # the K6 route's level resize
+    (1, 2160, 3840, 4320, 7680, 2.0),       # 8K
+])
+def test_resample_bilinear_kernel(dev, n, h, w, dh, dw, scale):
+    """X1's bilinear resize with its scale against the plain version, to
+    the bit, in one launch; NaN and +-inf placed where they spread."""
+    from optical_flow_tpu_torch.ops.resize import resize_bilinear_f32
+    gen = torch.Generator(dev).manual_seed(h + w)
+    x = _odd_values((torch.rand((n, 2, h, w), generator=gen, device=dev) - 0.5) * 12.0)
+    got = resize_bilinear(x, dw, dh, scale)
+    assert kernels.LAUNCHES["X1"] == 1 and got.is_contiguous()
+    assert _bit_equal(got, resize_bilinear_f32(x, dw, dh) * scale)
+
+
+@pytest.mark.parametrize("n,h,w,dh,dw", [
+    (16, 1080, 1920, 135, 240),             # the seed at 1080p, levels 3
+    (2, 1079, 1917, 135, 240),              # odd sizes
+    (1, 4320, 7680, 540, 960),
+    (2, 67, 121, 9, 13), (2, 1, 40, 1, 7), (2, 40, 1, 7, 1),
+    (2, 10, 40, 20, 10), (2, 40, 10, 10, 20),          # an axis that grows
+    (2, 10, 10, 20, 30), (2, 10, 40, 10, 7), (2, 37, 53, 37, 53),
+])
+def test_resample_area_kernel(dev, n, h, w, dh, dw):
+    """X1's INTER_AREA downsample with its scale, reading the seed's
+    (B, H, W, 2) layout in place, against the plain version on the same
+    strided view, to the bit, in `area_plan`'s launches (two where an axis
+    grows); NaN and +-inf in the seed, pixel (0, 0) among them."""
+    from optical_flow_tpu_torch.kernels.resample import resize_area
+    from optical_flow_tpu_torch.ops.resize import resize_area_f32
+    gen = torch.Generator(dev).manual_seed(h * w)
+    seed = (torch.rand((n, h, w, 2), generator=gen, device=dev) - 0.5) * 12.0
+    x = _odd_values(seed.movedim(-1, 1).contiguous()).movedim(1, -1).contiguous().movedim(-1, 1)
+    assert not x.is_contiguous()
+    got = resize_area(x, dw, dh, 0.125)
+    assert kernels.LAUNCHES["X1"] == len(area_plan(h, w, dh, dw)) and got.is_contiguous()
+    assert _bit_equal(got, resize_area_f32(x, dw, dh) * 0.125)
+    assert _bit_equal(resize_area(x.contiguous(), dw, dh, 0.125), got)
+
+
+@pytest.mark.parametrize("sh,dh,parts", [(270, 540, 2), (135, 270, 3), (541, 1079, 4)])
+def test_resample_row_blocks(dev, sh, dh, parts):
+    """X1 on a row block with the frame's shifted vertical table (the halo
+    path's resize) equals the plain `bilinear_rows` on the same block, and
+    the blocks together the whole frame's resize, to the bit."""
+    from optical_flow_tpu_torch.kernels.resample import bilinear_rows
+    from optical_flow_tpu_torch.ops import resize
+    gen = torch.Generator(dev).manual_seed(sh)
+    x = (torch.rand((2, 2, sh, 480), generator=gen, device=dev) - 0.5) * 12.0
+    s0, s1, _ = resize._coeffs_f32(sh, dh)
+    sy0, sy1, ty = resize.coeff_tensors(sh, dh, dev)
+    rows = []
+    for block in np.array_split(np.arange(dh), parts):
+        a, b = int(block[0]), int(block[-1]) + 1
+        lo, hi = int(s0[a]), int(s1[b - 1]) + 1
+        got = bilinear_rows(x[..., lo:hi, :], 960, sh, dh, a, b, lo, 2.0)
+        ref = resize.bilinear_rows(x[..., lo:hi, :], 960, sy0[a:b] - lo, sy1[a:b] - lo,
+                                   ty[a:b]) * 2.0
+        assert _bit_equal(got, ref)
+        rows.append(got)
+    assert _bit_equal(torch.cat(rows, -2), resize.resize_bilinear_f32(x, 960, dh) * 2.0)
+    assert kernels.LAUNCHES["X1"] == parts
+
+
+def test_resample_input_checks(dev):
+    from optical_flow_tpu_torch.kernels.resample import _table, resample
+    x = torch.zeros((1, 2, 8, 8), device=dev)
+    tab = _table("bilinear", 8, 16, dev)
+    with pytest.raises(TypeError):
+        resample(x.double(), tab, tab, False)
+    with pytest.raises(ValueError):
+        resample(x, (tab[0].long(), tab[1]), tab, False)        # int64 indices
+    with pytest.raises(ValueError):
+        resample(x, (tab[0].cpu(), tab[1].cpu()), tab, False)   # tables off the card
+    assert kernels.LAUNCHES["X1"] == 0
+
+
+def _ulps(got, ref):
+    """Units in the last place between two non-negative f32 tensors."""
+    return (got.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
+
+
+@pytest.mark.parametrize("b,h,w", [(16, 1080, 1920), (128, 72, 129), (7, 1079, 1917),
+                                   (3, 1, 1), (2, 5, 7), (1, 360, 365)])
+def test_magnitude_sum_kernel(dev, b, h, w):
+    """X2 within 1 ulp of the plain version per pair, equal across two
+    runs, and each pair's sum the same alone as in the batch."""
+    from optical_flow_tpu_torch.ops.polar import magnitude_sums as plain
+    gen = torch.Generator(dev).manual_seed(b * h)
+    flow = (torch.rand((b, 2, h, w), generator=gen, device=dev) - 0.5) * 12.0
+    got = magnitude_sum(flow)
+    assert kernels.LAUNCHES["X2"] == 1 and got.shape == (b,)
+    assert int(_ulps(got, plain(flow[:, 0], flow[:, 1])).max()) <= 1
+    assert torch.equal(magnitude_sum(flow), got)
+    for i in {0, b // 2, b - 1}:
+        assert torch.equal(magnitude_sum(flow[i:i + 1]), got[i:i + 1])
+
+
+def test_magnitude_sum_checks_and_nan(dev):
+    """A NaN spoils its own pair's sum alone; the wrapper takes planar,
+    contiguous (B, 2, H, W) f32 only."""
+    from optical_flow_tpu_torch.ops.polar import magnitude_sums as plain
+    flow = torch.ones((3, 2, 40, 64), device=dev)
+    flow[1, 0, 5, 5] = float("nan")
+    got = magnitude_sum(flow)
+    ref = plain(flow[:, 0], flow[:, 1])
+    assert torch.isnan(got[1]) and torch.equal(got[0], got[2])
+    assert int(_ulps(got[0::2], ref[0::2]).max()) <= 1
+    with pytest.raises(ValueError):
+        magnitude_sum(flow[:, :1])                              # not planar (B, 2, H, W)
+    with pytest.raises(ValueError):
+        magnitude_sum(flow.movedim(1, -1).contiguous().movedim(-1, 1))   # strided
+    assert kernels.LAUNCHES["X2"] == 1

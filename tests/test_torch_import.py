@@ -116,7 +116,7 @@ def test_port_imports_no_jax_and_no_cuda():
     assert r["jax_package"] == []
     assert r["cuda_initialized"] is False
     assert r["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0,
-                             "K6": 0, "K7": 0}
+                             "K6": 0, "K7": 0, "X1": 0, "X2": 0}
 
 
 _SUBPACKAGE = textwrap.dedent("""

@@ -8,9 +8,8 @@ port's meshes repeat the CPU device.  Inputs are JAX's own fixtures
 (tests/test_parallel.py): `smooth_texture_pair(96, 128, (1, 2), seed=s)`
 for s in 0..7 and its 10-frame rolled chain.  Flow and sums: atol 1e-4 /
 rtol 1e-4 against JAX, as JAX's own mesh tests; the port's sharded steps
-equal its one-device entries to the bit (each pair's compute is
-independent of the split, and the sums reduce the gathered magnitudes as
-one batch).  BGR: the port's gate against JAX (at most 1e-3 of the bytes
+equal its one-device entries to the bit (each pair's compute, its
+magnitude sum included, is independent of the split).  BGR: the port's gate against JAX (at most 1e-3 of the bytes
 differ), and byte-equal to the port's one-device entry.
 """
 

@@ -8,7 +8,7 @@ and return a stand-in), so the test sees the inputs the JAX case builds
 and the XLA reference it computes.  Then:
 
   * the port's case list is JAX's `_cases(quick=False)` names plus
-    `colorize/u8_48x200`, plus the K7 and pyramid cases;
+    `colorize/u8_48x200`, plus the K7, pyramid, X1 and X2 cases;
   * each shared case's `inputs()` equal the JAX case's, array for array;
   * each case's plain version, run on those inputs on the CPU, matches
     the JAX XLA reference (`core.*`, `ops/*`) at the case's tolerance;
@@ -190,7 +190,9 @@ def test_case_list_is_jax_plus_k7_and_pyramid():
     suffixes = [n.split("/")[1] for n in JAX_NAMES if n.startswith("fused_iterate/")
                 and "bf16" not in n]
     assert extra == [f"{g}/{s}" for s in suffixes for g in ("fused_poly", "fused_poly_k2k1")] \
-        + ["pyramid/vertical_jump_1080x1920"]
+        + ["pyramid/vertical_jump_1080x1920", "resample/upsample_x2_67x121",
+           "resample/area_seed_strided_96x128", "resample/area_grow_10x40",
+           "resample/halo_rows_135x240", "magnitude_sum/pairs_7_72x129"]
     # each shared case keeps the JAX tolerance as its ceiling
     for c in jselftest._cases(quick=False):
         assert (PORT[c["name"]].atol, PORT[c["name"]].rtol) == (c["atol"], c["rtol"])
