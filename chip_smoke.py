@@ -1025,7 +1025,7 @@ def kernel_x1_phase(dev, stats) -> None:
     for lv in build_plan(1080, 1920, FarnebackConfig(levels=5)).levels:
         if lv.k >= 4:
             bilinear(f"deep5_resize_L{lv.k}", blurred, lv.height, lv.width, 1.0)
-    run_cases("X1", cases, stats, tolerance="equal to the bit")
+    run_cases("X1", cases, stats, tolerance="equal to the bit", ptxas=ptxas_report("resample"))
 
 
 def kernel_x2_phase(dev, stats) -> None:

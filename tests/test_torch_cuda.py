@@ -1205,6 +1205,7 @@ def test_resample_bilinear_kernel(dev, n, h, w, dh, dw, scale):
     (2, 67, 121, 9, 13), (2, 1, 40, 1, 7), (2, 40, 1, 7, 1),
     (2, 10, 40, 20, 10), (2, 40, 10, 10, 20),          # an axis that grows
     (2, 10, 10, 20, 30), (2, 10, 40, 10, 7), (2, 37, 53, 37, 53),
+    (2, 40, 1000, 5, 13),                   # more horizontal taps than registers hold
 ])
 def test_resample_area_kernel(dev, n, h, w, dh, dw):
     """X1's INTER_AREA downsample with its scale, reading the seed's

@@ -93,6 +93,7 @@ def test_table_loop_is_resize_bilinear_times_scale(n, h, w, dh, dw, scale, odd):
     (2, 10, 40, 20, 10, 2), (2, 40, 10, 10, 20, 2),    # an axis grows: two launches
     (2, 10, 10, 20, 30, 2), (2, 3, 30, 7, 5, 2),
     (2, 37, 53, 37, 53, 1),                 # the same size: a copy times the scale
+    (2, 40, 1000, 5, 13, 1),                # 78 horizontal taps
 ])
 def test_table_loop_is_resize_area_times_scale(n, h, w, dh, dw, launches):
     """In `area_plan`'s launches, on the seed's (B, H, W, 2) layout read in
