@@ -1549,13 +1549,6 @@ def corpus_clip(h: int, w: int, n_frames: int, cfg, dev):
     return list(zip(needed, clip)), todo, config, pair_chunk_for(h, w, device=dev)
 
 
-def extractor_loop(seq, todo, config, chunk: int, dev, plain: bool = False) -> dict:
-    """One run of the extractor's device loop over a corpus_clip."""
-    from optical_flow_tpu_torch.pipeline import extractor
-    return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev,
-                                    plain=plain)
-
-
 def busy_share(loop, name: str) -> dict:
     """One profiled run of `loop` after one unprofiled: wall and device ms,
     the busy share, the kernels launched and the host-to-device copies,
@@ -1605,7 +1598,8 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
 
     def run(plain: bool = False) -> dict:
-        return extractor_loop(seq, todo, config, chunk, dev, plain)
+        return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev,
+                                        plain=plain)
 
     n_chunks = -(-len(todo) // chunk)
     n_levels = len(build_plan(h, w, cfg).levels)
@@ -1723,6 +1717,7 @@ def profile_phase(dev, power) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
+    from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
     sums_of = flow_sums_fn()
@@ -1765,7 +1760,7 @@ def profile_phase(dev, power) -> None:
         seq, todo, config, chunk = corpus_clip(72, 129, 4000, FarnebackConfig(), dev)
 
         def loop():
-            return extractor_loop(seq, todo, config, chunk, dev)
+            return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev)
 
         emit("profile_extractor_corpus", run=run, h=72, w=129, windows=len(todo),
              chunk=chunk, windows_per_s=len(todo) / median_s(loop, warmup=1, timed=3),
