@@ -7,48 +7,44 @@
 //
 // Each pixel's magnitude is sqrt(x*x + y*y): two f32 products and their
 // sum (--fmad=false), then the correctly rounded sqrt (__fsqrt_rn), as the
-// plain version (ops/polar.py:magnitude) computes it.  A pair of at least
-// WIDE_PAIR pixels takes a cluster of CLUSTER blocks of 1024 threads: block
-// r of the cluster takes the r-th of CLUSTER equal spans of the pair's
-// pixels; its thread t sums, in f64, pixels t, t + THREADS, ... of the
-// span in that order; the block adds its threads' sums by a fixed tree in
-// shared memory; after a cluster barrier the cluster's block 0 adds the
-// CLUSTER block sums in rank order, read from the other blocks' shared
-// memory (Hopper's distributed shared memory), and rounds to f32 once.  A
-// smaller pair takes one block of 256 threads, the same way over the whole
-// pair.  No atomics: the order depends on H * W alone, so a pair's sum
-// does not depend on the batch or the run.
+// plain version (ops/polar.py:magnitude) computes it.  A pair's pixels are
+// cut into spans of SPAN; block (s, b) sums span s of pair b: its thread t
+// sums, in f64, pixels t, t + THREADS, ... of the span in that order, and
+// the block adds its threads' sums by a fixed tree in shared memory.  A
+// pair of one span is rounded to f32 there; otherwise each block writes
+// its f64 sum, and a second launch adds a pair's span sums in span order
+// and rounds once.  No atomics: the order depends on H * W alone, so a
+// pair's sum does not depend on the batch or the run, and a frame of any
+// size spreads over the card (an 8K pair is 254 blocks).
 //
 // What bounds it: device-memory bytes, 8 B a pixel read.  Each thread
 // keeps UNROLL pixels' loads in flight before it adds them in order.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int CLUSTER = 8;
+constexpr int THREADS = 512;
 constexpr int UNROLL = 4;
-// Pixels a pair from which a cluster takes it, else one block.
-constexpr long long WIDE_PAIR = 1 << 17;
+constexpr long long SPAN = 1 << 17;     // pixels a block sums
+constexpr int COMBINE_THREADS = 128;
 
 __device__ __forceinline__ double magnitude(float x, float y) {
   const float s = x * x + y * y;
   return static_cast<double>(__fsqrt_rn(s));
 }
 
-// The f64 sum of pixels [lo, hi) of one pair: each thread's share in
-// order, then the block's fixed tree; the result in part[0] for every
-// thread.
-template <int THREADS>
-__device__ __forceinline__ void block_sum(const float* __restrict__ fx,
-                                          const float* __restrict__ fy, long long lo,
-                                          long long hi, double* part) {
+__global__ void __launch_bounds__(THREADS)
+span_sum_kernel(const float* __restrict__ flow, long long hw, int spans,
+                double* __restrict__ partial, float* __restrict__ sums) {
+  __shared__ double part[THREADS];
   const int t = threadIdx.x;
+  const float* fx = flow + static_cast<long long>(blockIdx.y) * 2 * hw;
+  const float* fy = fx + hw;
+  const long long lo = static_cast<long long>(blockIdx.x) * SPAN;
+  const long long hi = lo + SPAN < hw ? lo + SPAN : hw;
   double acc = 0.0;
   long long p = lo + t;
   for (; p + (UNROLL - 1) * THREADS < hi; p += UNROLL * THREADS) {
@@ -68,54 +64,49 @@ __device__ __forceinline__ void block_sum(const float* __restrict__ fx,
     if (t < s) part[t] += part[t + s];
     __syncthreads();
   }
-}
-
-constexpr int WIDE_THREADS = 1024;
-constexpr int NARROW_THREADS = 256;
-
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WIDE_THREADS)
-magnitude_sum_cluster_kernel(const float* __restrict__ flow, long long hw,
-                             float* __restrict__ sums) {
-  __shared__ double part[WIDE_THREADS];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const float* fx = flow + static_cast<long long>(blockIdx.y) * 2 * hw;
-  const long long span = (hw + CLUSTER - 1) / CLUSTER;
-  const long long lo = rank * span;
-  block_sum<WIDE_THREADS>(fx, fx + hw, lo, lo + span < hw ? lo + span : hw, part);
-  cluster.sync();  // every block's part[0] is final
-  if (rank == 0 && threadIdx.x == 0) {
-    double total = part[0];
-    for (int r = 1; r < CLUSTER; ++r) total += *cluster.map_shared_rank(&part[0], r);
-    sums[blockIdx.y] = static_cast<float>(total);
+  if (t == 0) {
+    if (spans == 1) {
+      sums[blockIdx.y] = static_cast<float>(part[0]);
+    } else {
+      partial[static_cast<long long>(blockIdx.y) * spans + blockIdx.x] = part[0];
+    }
   }
-  cluster.sync();  // the other blocks' shared memory stays until it is read
 }
 
-__global__ void __launch_bounds__(NARROW_THREADS)
-magnitude_sum_block_kernel(const float* __restrict__ flow, long long hw,
-                           float* __restrict__ sums) {
-  __shared__ double part[NARROW_THREADS];
-  const float* fx = flow + static_cast<long long>(blockIdx.y) * 2 * hw;
-  block_sum<NARROW_THREADS>(fx, fx + hw, 0, hw, part);
-  if (threadIdx.x == 0) sums[blockIdx.y] = static_cast<float>(part[0]);
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine_kernel(const double* __restrict__ partial, int spans, int B,
+               float* __restrict__ sums) {
+  const int b = blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (b >= B) return;
+  const double* row = partial + static_cast<long long>(b) * spans;
+  double total = row[0];
+  for (int s = 1; s < spans; ++s) total += row[s];
+  sums[b] = static_cast<float>(total);
 }
 
 }  // namespace
 
-// flow: (B, 2, H, W) f32 contiguous, hw = H * W; sums: (B,) f32.
-// B <= 65535.  Returns a cudaError_t.
-extern "C" int oft_magnitude_sum(const float* flow, int B, long long hw, float* sums,
-                                 int device, void* stream) {
+// The spans a pair of hw pixels is cut into; the launches are 1 for one
+// span, else 2 (the span sums, then their sum).
+extern "C" int oft_magnitude_sum_spans(long long hw) {
+  return hw <= SPAN ? 1 : static_cast<int>((hw + SPAN - 1) / SPAN);
+}
+
+// flow: (B, 2, H, W) f32 contiguous, hw = H * W; partial: (B, spans) f64
+// scratch where spans > 1 (else unused); sums: (B,) f32.  B <= 65535.
+// Returns a cudaError_t.
+extern "C" int oft_magnitude_sum(const float* flow, int B, long long hw, double* partial,
+                                 float* sums, int device, void* stream) {
   const oft::DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0 || B > 65535 || hw < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || B > 65535 || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int spans = oft_magnitude_sum_spans(hw);
   auto s = static_cast<cudaStream_t>(stream);
-  if (hw >= WIDE_PAIR) {
-    magnitude_sum_cluster_kernel<<<dim3(CLUSTER, B), WIDE_THREADS, 0, s>>>(flow, hw, sums);
-  } else {
-    magnitude_sum_block_kernel<<<dim3(1, B), NARROW_THREADS, 0, s>>>(flow, hw, sums);
-  }
+  span_sum_kernel<<<dim3(spans, B), THREADS, 0, s>>>(flow, hw, spans, partial, sums);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || spans == 1) return static_cast<int>(err);
+  combine_kernel<<<(B + COMBINE_THREADS - 1) / COMBINE_THREADS, COMBINE_THREADS, 0, s>>>(
+      partial, spans, B, sums);
   return static_cast<int>(cudaGetLastError());
 }

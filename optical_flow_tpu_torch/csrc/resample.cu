@@ -9,8 +9,8 @@
 // weights (f32); the bilinear one has T = 2, INTER_AREA about
 // ceil(scale) + 1 with zero-weight pads, a unit one T = 1 (weight 1).
 //
-// A thread takes one output pixel of one plane, or of PLANES planes where
-// the launch has outputs enough.  For each tap of the second axis it makes
+// A thread takes one output pixel of one plane, or of up to PLANES planes
+// where the launch has outputs enough.  For each tap of the second axis it makes
 // the first axis's sum over its taps (the first-pass value that output
 // needs, recomputed, not stored), then adds the weighted sums; every sum
 // starts from its first term and adds the others in table order, and the
@@ -221,10 +221,15 @@ extern "C" int oft_resample(const float* src, long long sn, long long sc, long l
   if (C <= 0 || NC <= 0 || H <= 0 || W <= 0 || ty <= 0 || tx <= 0 || dh <= 0 || dw <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  // PLANES planes a thread where the outputs alone give threads enough
-  if (static_cast<long long>(dh) * dw * NC >= MANY_THREADS * PLANES) {
+  // PLANES planes a thread (two where there are two or three) where the
+  // outputs alone give threads enough
+  const bool many = static_cast<long long>(dh) * dw * NC >= MANY_THREADS * PLANES;
+  if (many && NC >= PLANES) {
     launch<PLANES>(vertical_first, s, src, sn, sc, sh, sw, C, NC, iy, wy, ty, ix, wx, tx,
                    scale, out, dh, dw);
+  } else if (many && NC >= 2) {
+    launch<2>(vertical_first, s, src, sn, sc, sh, sw, C, NC, iy, wy, ty, ix, wx, tx, scale,
+              out, dh, dw);
   } else {
     launch<1>(vertical_first, s, src, sn, sc, sh, sw, C, NC, iy, wy, ty, ix, wx, tx, scale,
               out, dh, dw);

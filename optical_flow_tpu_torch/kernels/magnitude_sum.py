@@ -3,20 +3,21 @@
 Replaces what the JAX package leaves to one XLA fusion (no
 `pl.pallas_call`): `cart_to_polar(...)[0]` then `jnp.sum` over each
 pair's pixels (`optical_flow_tpu/pipeline/extractor.py:113-114`; the
-angle is never read).  Planar (B, 2, H, W) f32 -> (B,) f32 in one launch,
-where the eager version makes five (mul, mul, add, sqrt, sum).
+angle is never read).  Planar (B, 2, H, W) f32 -> (B,) f32 in one launch
+(two past 2^17 pixels a pair), where the eager version makes five (mul,
+mul, add, sqrt, sum).
 
 Each pixel's magnitude is `sqrt(x*x + y*y)` as `ops/polar.py:magnitude`
 computes it (two products and a sum, `--fmad=false`, correctly rounded
 sqrt); each pair's magnitudes are summed in f64 and rounded to f32 once.
-A pair of 2^17 pixels or more takes a cluster of eight blocks: each
-block sums a fixed eighth of its pixels, thread by thread in a fixed
-stride and then by a fixed tree, and the cluster's first block adds the
-eight block sums in rank order from their shared memory; a smaller pair
-takes one block the same way.  No atomics: the order depends on (H, W)
-alone, so a pair's sum is the same in any batch and on every run, and
-within one f32 ulp of the plain version (`ops/polar.py:magnitude_sums`).
-Bound on the card by bytes: the flow read once.
+A pair is cut into spans of 2^17 pixels, one block each, which sums its
+span thread by thread in a fixed stride and then by a fixed tree; a pair
+of one span is rounded there, else a second launch adds the span sums in
+span order.  No atomics: the order depends on (H, W) alone, so a pair's
+sum is the same in any batch and on every run, and within one f32 ulp of
+the plain version (`ops/polar.py:magnitude_sums`).  `LAUNCHES["X2"]`
+counts one a call, of one launch or two.  Bound on the card by bytes:
+the flow read once.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ _MAX_PAIRS = 65535
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    f = _build.library("magnitude_sum").oft_magnitude_sum
+    """(the C entry, the spans a pair of hw pixels is cut into)."""
+    lib = _build.library("magnitude_sum")
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    f.argtypes = [p, i, q, p, i, p]
-    f.restype = i
-    return f
+    run, spans = lib.oft_magnitude_sum, lib.oft_magnitude_sum_spans
+    run.argtypes, run.restype = [p, i, q, p, p, i, p], i
+    spans.argtypes, spans.restype = [q], i
+    return run, spans
 
 
 def magnitude_sum(flow: torch.Tensor) -> torch.Tensor:
@@ -55,11 +58,18 @@ def magnitude_sum(flow: torch.Tensor) -> torch.Tensor:
     dev = flow.device
     check(flow, "flow", dev, (torch.float32,), 4)
     b, _, h, w = flow.shape
+    if b == 0 or h * w == 0:
+        return torch.zeros((b,), dtype=torch.float32, device=dev)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
+    run, spans_of = _kernel()
+    spans = spans_of(h * w)
+    partial = (torch.empty((min(b, _MAX_PAIRS), spans), dtype=torch.float64, device=dev)
+               if spans > 1 else None)
     for lo in range(0, b, _MAX_PAIRS):
         part = flow[lo:lo + _MAX_PAIRS]
-        rc = _kernel()(part.data_ptr(), part.shape[0], h * w, out[lo:].data_ptr(),
-                       dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        rc = run(part.data_ptr(), part.shape[0], h * w,
+                 None if partial is None else partial.data_ptr(), out[lo:].data_ptr(),
+                 dev.index, torch.cuda.current_stream(dev).cuda_stream)
         raise_on_error(rc, "magnitude_sum")
         LAUNCHES["X2"] += 1
     return out

@@ -1267,7 +1267,8 @@ def _ulps(got, ref):
 
 
 @pytest.mark.parametrize("b,h,w", [(16, 1080, 1920), (128, 72, 129), (7, 1079, 1917),
-                                   (3, 1, 1), (2, 5, 7), (1, 360, 365)])
+                                   (3, 1, 1), (2, 5, 7), (1, 360, 365), (2, 256, 512),
+                                   (1, 4320, 7680)])
 def test_magnitude_sum_kernel(dev, b, h, w):
     """X2 within 1 ulp of the plain version per pair, equal across two
     runs, and each pair's sum the same alone as in the batch."""
