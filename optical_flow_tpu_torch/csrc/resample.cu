@@ -43,15 +43,28 @@ constexpr int PLANES = 4;
 // Horizontal taps the vertical-first kernel keeps in registers.
 constexpr int AREA_COLS = 16;
 
-// The planes [nc0, nc0 + kPlanes) of the source; a plane past the last
-// repeats it (its result is not stored).
+// The planes [nc0, nc0 + kPlanes) of the source (nc0 < NC), with one
+// division; a plane past the last repeats it (its result is not stored).
 template <int kPlanes>
 __device__ __forceinline__ void plane_ptrs(const float* src, long long sn, long long sc,
                                            int C, int NC, int nc0, const float** p) {
+  if constexpr (kPlanes == 1) {
+    p[0] = src + static_cast<long long>(nc0 / C) * sn + static_cast<long long>(nc0 % C) * sc;
+    return;
+  }
+  int n = nc0 / C;
+  int c = nc0 - n * C;
 #pragma unroll
   for (int q = 0; q < kPlanes; ++q) {
-    const int nc = nc0 + q < NC ? nc0 + q : NC - 1;
-    p[q] = src + static_cast<long long>(nc / C) * sn + static_cast<long long>(nc % C) * sc;
+    if (q == 0 || nc0 + q < NC) {
+      p[q] = src + static_cast<long long>(n) * sn + static_cast<long long>(c) * sc;
+    } else {
+      p[q] = p[q > 0 ? q - 1 : 0];
+    }
+    if (++c == C) {
+      c = 0;
+      ++n;
+    }
   }
 }
 
