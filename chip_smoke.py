@@ -71,7 +71,7 @@ call and the busy share of the 1080p flow call under flags 0, 256 and 4,
 with levels=5 and with winsize 63, of the 8K pair and of the extractor's
 72x129 chunk (torch.profiler); and `profile_extractor_corpus` (the
 extractor's loop at 72x129).  --profile-only builds and runs those alone,
-with no checks and no result line, in this tree or a parent's.
+with no checks and no result line.
 One JSON line per phase; then the card's nvidia-smi line, the kernels
 summary (each kernel's launches on the paths, its error against its
 plain version, its time, its plain version's, the bound of its bytes or
@@ -141,6 +141,13 @@ KERNEL_INFO = {
     "X2": ("magnitude_sum", "optical_flow_tpu_torch/csrc/magnitude_sum.cu",
            "optical_flow_tpu/pipeline/extractor.py:113"),
 }
+
+
+def x2_launches(h: int, w: int) -> int:
+    """The kernels one X2 call launches on pairs of h x w pixels: the span
+    sums, and the combine past one span of 2^17 pixels (`SPAN` in
+    `csrc/magnitude_sum.cu`)."""
+    return 1 if h * w <= 1 << 17 else 2
 
 
 def require(ok: bool, what: str) -> None:
@@ -1119,7 +1126,7 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
                 "K1": steps if fused else 0, "K4": 0,
                 "K5a": steps if unfused else 0, "K5b": steps if unfused else 0,
                 "K6": n_k6, "K7": steps if fused_poly else 0,
-                "X1": len(levels) - 1 + n_k6 + n_area, "X2": 1}
+                "X1": len(levels) - 1 + n_k6 + n_area, "X2": x2_launches(h, w)}
     path = [kid for kid, n in expected.items() if n > 0]
     fused_iterate.FUSE_POLYEXP = fused_poly
     # K1's launches by level width: the update_blur calls of the counted run
@@ -1408,8 +1415,9 @@ def mesh_dp_phase(dev, power) -> None:
     launches = dict(LAUNCHES)
     for kid in ("K1", "K2", "K3", "K4", "X1", "X2"):
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
-    # each data shard sums its own pairs: one X2 a shard with pairs
-    require(launches["X2"] == 2, f"{name}: {launches['X2']} X2 launches, expected 2")
+    # each data shard sums its own pairs: one X2 call a shard with pairs
+    require(launches["X2"] == 2 * x2_launches(h, w),
+            f"{name}: {launches['X2']} X2 launches, expected {2 * x2_launches(h, w)}")
     wall_s = median_s(sharded, warmup=1, timed=3)
     one_flow = calc_flow_batched(prev, nxt)
     one_sums = magnitude_sums(prev, nxt)
@@ -1609,7 +1617,8 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     launches = dict(LAUNCHES)
     expected = {"K1": 3 * n_levels * n_chunks, "K2": n_levels * n_chunks,
                 "K3": (n_levels - 1) * n_chunks, "K4": 0, "K5a": 0, "K5b": 0,
-                "K6": 0, "K7": 0, "X1": (n_levels - 1) * n_chunks, "X2": n_chunks}
+                "K6": 0, "K7": 0, "X1": (n_levels - 1) * n_chunks,
+                "X2": x2_launches(h, w) * n_chunks}
     require(launches == expected, f"{name}: launches {launches} != {expected}")
     require(sorted(sums) == list(range(len(todo))), f"{name}: windows missing")
     plain = run(plain=True)
@@ -1671,19 +1680,6 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
          **fields, card=power)
 
 
-def flow_sums_fn():
-    """The magnitude sums of a (B, H, W, 2) flow as the extractor takes
-    them: X2 on the planar flow.  In a tree from before X2 (a parent
-    profiled beside this one with --profile-only) the eager sum that
-    tree ran."""
-    import importlib.util
-    if importlib.util.find_spec("optical_flow_tpu_torch.kernels.magnitude_sum") is None:
-        from optical_flow_tpu_torch.ops.polar import magnitude
-        return lambda flow: magnitude(flow[..., 0], flow[..., 1]).sum(dim=(-2, -1))
-    from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
-    return lambda flow: magnitude_sum(flow.movedim(-1, 1))
-
-
 def device_events(prof, calls: int) -> dict:
     """Per call, from a profile: device ms by event name, the kernels
     launched (device events other than copies and fills) and the
@@ -1712,15 +1708,14 @@ def profile_phase(dev, power) -> None:
     event is listed by name, largest first, beside the kernels launched
     and the host-to-device copies per call.  Then the extractor's device
     loop at 72x129 (`profile_extractor_corpus`): windows/s and the busy
-    share.  Package-agnostic (`flow_sums_fn`), so that --profile-only
-    can run it on a parent tree."""
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
     from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
     from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
-    sums_of = flow_sums_fn()
     hd = frames(1080, 1920, dev)
     seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev)
     cells = [("profile_1080p", hd, FarnebackConfig(flags=flags), seed)
@@ -1733,7 +1728,7 @@ def profile_phase(dev, power) -> None:
         for phase, (prev, nxt), cfg, seed in cells:
 
             def call():
-                return sums_of(calc_flow_batched(prev, nxt, cfg, seed))
+                return magnitude_sum(calc_flow_batched(prev, nxt, cfg, seed).movedim(-1, 1))
 
             for _ in range(WARMUP):
                 call()
@@ -1870,8 +1865,7 @@ def main(argv: list[str]) -> int:
                              "and the 8K pair (PERF.md section 5)")
     parser.add_argument("--profile-only", action="store_true",
                         help="build and run the profile phases alone (no checks "
-                             "of the kernels or paths, no result line); runs on "
-                             "a tree from before X1 and X2 as well")
+                             "of the kernels or paths, no result line)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

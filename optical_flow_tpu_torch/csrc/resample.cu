@@ -16,7 +16,8 @@
 // starts from its first term and adds the others in table order, and the
 // scale is one f32 multiply at the end.  With
 // --fmad=false that is the plain version's arithmetic op for op, plane by
-// plane, so the result is equal to the bit (ops/resize.py:resample_taps).
+// plane, so the result is equal to the bit (resample_taps in
+// tests/test_torch_resample.py is this loop in PyTorch).
 // The source is read through its strides, so the seed's (B, H, W, 2)
 // layout is read in place.
 //

@@ -8,9 +8,11 @@
   K5a `update_gather.update_matrices` displaced fetch + M alone
   K5b `blur_solve.blur_solve`     box or Gaussian window sum of M + solve
   K7 `update_gather.update_blur_poly` K1 with the expansion derived in-kernel
-  X1 `resample.resample`          separable resize by tap tables: the flow's
+  X1 `resample.resize_bilinear`, `resize_area`, `bilinear_rows`
+                                  separable resize by tap tables: the flow's
                                   x2 upsample, the K6 route's resize, the
-                                  seed's INTER_AREA downsample
+                                  seed's INTER_AREA downsample, a halo block's
+                                  resize
   X2 `magnitude_sum.magnitude_sum` per-pair sums of the flow magnitude
   `fused_iterate.update_flow` drives a level's iterations: K1 for a
   window that fits its tile, K5a -> K5b otherwise;

@@ -16,8 +16,8 @@ of one span is rounded there, else a second launch adds the span sums in
 span order.  No atomics: the order depends on (H, W) alone, so a pair's
 sum is the same in any batch and on every run, and within one f32 ulp of
 the plain version (`ops/polar.py:magnitude_sums`).  `LAUNCHES["X2"]`
-counts one a call, of one launch or two.  Bound on the card by bytes:
-the flow read once.
+counts the kernels a call launches: one a batch of pairs of one span,
+two past it.  Bound on the card by bytes: the flow read once.
 """
 
 from __future__ import annotations
@@ -71,5 +71,5 @@ def magnitude_sum(flow: torch.Tensor) -> torch.Tensor:
                  None if partial is None else partial.data_ptr(), out[lo:].data_ptr(),
                  dev.index, torch.cuda.current_stream(dev).cuda_stream)
         raise_on_error(rc, "magnitude_sum")
-        LAUNCHES["X2"] += 1
+        LAUNCHES["X2"] += 1 if spans == 1 else 2
     return out

@@ -15,14 +15,21 @@ Each output recomputes the first-pass values it needs from the tables
 of the second axis, the first axis's taps summed from the first term in
 table order, then `* scale` as a separate f32 multiply, all built with
 `--fmad=false`.  So the result equals the plain version to the bit
-(`ops/resize.py:resample_taps` is the same loop in PyTorch).  Bound on
-the card by bytes: the source read once, the output written once.
+(`tests/test_torch_resample.py` holds the same loop in PyTorch to the
+plain resizes).  Bound on the card by bytes: the source read once, the
+output written once.
+
+`resize_bilinear`, `resize_area` and `bilinear_rows` are the entries:
+each runs the plain version on a CPU tensor and X1 on a CUDA tensor.
+Each table carries the source span its indices reach, which the launch
+checks against the frame it is given, so that no table reads past it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,29 +48,41 @@ def _kernel():
     return f
 
 
+class Table(NamedTuple):
+    """An axis's taps: (d_len, T) int32 source indices and f32 weights,
+    and the source span [lo, hi) the indices reach."""
+    index: torch.Tensor
+    weight: torch.Tensor
+    lo: int
+    hi: int
+
+
+def _to_table(idx: np.ndarray, wt: np.ndarray, device: torch.device) -> Table:
+    return Table(torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=device),
+                 torch.as_tensor(np.ascontiguousarray(wt, np.float32), device=device),
+                 int(idx.min()), int(idx.max()) + 1)
+
+
 @functools.lru_cache(maxsize=512)
-def _table(kind: str, s_len: int, d_len: int, device: torch.device):
-    """An axis's (index int32, weight f32) table on `device`, made once
-    per (kind, lengths, device): "bilinear", "area" or "unit"
-    (d_len == s_len)."""
+def _table(kind: str, s_len: int, d_len: int, device: torch.device) -> Table:
+    """An axis's table on `device`, made once per (kind, lengths, device):
+    "bilinear", "area" or "unit" (d_len == s_len)."""
     if kind == "bilinear":
         idx, wt = resize.bilinear_taps(s_len, d_len)
     elif kind == "area":
         idx, wt = resize._area_taps(s_len, d_len)
     else:
         idx, wt = resize.unit_taps(d_len)
-    return (torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=device),
-            torch.as_tensor(np.ascontiguousarray(wt, np.float32), device=device))
+    return _to_table(idx, wt, device)
 
 
 @functools.lru_cache(maxsize=512)
 def _row_block_table(s_len: int, d_len: int, a: int, b: int, lo: int,
-                     device: torch.device):
+                     device: torch.device) -> Table:
     """Output rows [a, b) of the (s_len -> d_len) bilinear table, their
     source indices shifted to a row block that starts at source row lo."""
     idx, wt = resize.bilinear_taps(s_len, d_len)
-    return (torch.as_tensor(np.ascontiguousarray(idx[a:b] - lo, np.int32), device=device),
-            torch.as_tensor(np.ascontiguousarray(wt[a:b]), device=device))
+    return _to_table(idx[a:b] - lo, wt[a:b], device)
 
 
 def _planes(x: torch.Tensor) -> torch.Tensor:
@@ -79,18 +98,18 @@ def _planes(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1, lead[-1]) + tuple(x.shape[-2:]))
 
 
-def resample(x: torch.Tensor, ytab, xtab, vertical_first: bool,
-             scale: float = 1.0) -> torch.Tensor:
-    """(..., H, W) f32, any strides -> contiguous (..., dh, dw) f32:
-    `resample_taps` of the tables ytab (dh, Ty) and xtab (dw, Tx), each
-    an (int32 index, f32 weight) pair on x's device, then `* scale`.
-    A CUDA tensor launches X1; a CPU tensor runs `resample_taps`."""
+def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
+              scale: float = 1.0) -> torch.Tensor:
+    """One X1 launch: (..., H, W) f32 on the card, any strides ->
+    contiguous (..., dh, dw) f32, resampled by the tables ytab (dh, Ty)
+    and xtab (dw, Tx) on x's device, then `* scale`.  The entries above
+    send a CPU tensor to the plain resizes; here it raises."""
     if not on_cuda(x):
-        return resize.resample_taps(x, ytab, xtab, vertical_first, scale)
+        raise ValueError("X1 launches on a CUDA tensor; a CPU tensor takes the plain resize")
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
     dev = x.device
-    (iy, wy), (ix, wx) = ytab, xtab
+    iy, wy, ix, wx = ytab.index, ytab.weight, xtab.index, xtab.weight
     for name, t, dt in (("ytab index", iy, torch.int32), ("ytab weight", wy, torch.float32),
                         ("xtab index", ix, torch.int32), ("xtab weight", wx, torch.float32)):
         if t.device != dev or t.dtype != dt or t.dim() != 2 or not t.is_contiguous():
@@ -108,6 +127,10 @@ def resample(x: torch.Tensor, ytab, xtab, vertical_first: bool,
         return out
     if h == 0 or w == 0:
         raise ValueError(f"cannot resample an empty {h}x{w} frame")
+    for name, tab, length in (("ytab", ytab, h), ("xtab", xtab, w)):
+        if tab.lo < 0 or tab.hi > length:
+            raise ValueError(f"{name} reads source [{tab.lo}, {tab.hi}), past a "
+                             f"length of {length}")
     sn, sc, sh, sw = v.stride()
     rc = _kernel()(v.data_ptr(), sn, sc, sh, sw, c, n * c, h, w,
                    iy.data_ptr(), wy.data_ptr(), ty, ix.data_ptr(), wx.data_ptr(), tx,
@@ -133,7 +156,7 @@ def resize_bilinear(x: torch.Tensor, dw: int, dh: int,
         ytab, xtab = _table("unit", sh, sh, dev), _table("unit", sw, sw, dev)
     else:
         ytab, xtab = _table("bilinear", sh, dh, dev), _table("bilinear", sw, dw, dev)
-    return resample(x.float(), ytab, xtab, False, scale)
+    return _resample(x.float(), ytab, xtab, False, scale)
 
 
 def area_plan(sh: int, sw: int, dh: int, dw: int) -> list:
@@ -186,8 +209,8 @@ def resize_area(x: torch.Tensor, dw: int, dh: int, scale: float = 1.0) -> torch.
     plan = area_plan(sh, sw, dh, dw)
     out = x.float()
     for k, (vert, horiz, vertical_first) in enumerate(plan):
-        out = resample(out, _table(*vert, out.device), _table(*horiz, out.device),
-                       vertical_first, scale if k == len(plan) - 1 else 1.0)
+        out = _resample(out, _table(*vert, out.device), _table(*horiz, out.device),
+                        vertical_first, scale if k == len(plan) - 1 else 1.0)
     return out
 
 
@@ -203,5 +226,5 @@ def bilinear_rows(x: torch.Tensor, dw: int, sh: int, dh: int, a: int, b: int,
         out = resize.bilinear_rows(x.float(), dw, sy0[a:b] - lo, sy1[a:b] - lo, ty[a:b])
         return out if scale == 1.0 else out * scale
     dev = x.device
-    return resample(x.float(), _row_block_table(sh, dh, a, b, lo, dev),
-                    _table("bilinear", x.shape[-1], dw, dev), False, scale)
+    return _resample(x.float(), _row_block_table(sh, dh, a, b, lo, dev),
+                     _table("bilinear", x.shape[-1], dw, dev), False, scale)

@@ -13,8 +13,8 @@ of the initial flow.  Both are plain PyTorch, as the JAX package leaves
 them to plain XLA, and neither goes through a matrix product, so no TF32
 setting changes them.  On a card the pyramid runs them on X1
 (`kernels/resample.py`), which reads the per-axis tap tables built here
-(`bilinear_taps`, `_area_taps`, `unit_taps`); `resample_taps` is X1's
-table loop in plain PyTorch, equal to the bit to the resizes above.
+(`bilinear_taps`, `_area_taps`, `unit_taps`) and equals the resizes
+above to the bit.
 """
 
 from __future__ import annotations
@@ -106,44 +106,6 @@ def unit_taps(n: int):
     """The table of an axis a pass leaves alone: one tap a sample, itself,
     weight 1 (x * 1.0 is x, whatever x is)."""
     return (np.arange(n, dtype=np.int32)[:, None], np.ones((n, 1), np.float32))
-
-
-def resample_taps(src: torch.Tensor, ytaps, xtaps, vertical_first: bool,
-                  scale: float = 1.0) -> torch.Tensor:
-    """X1's function in plain PyTorch: src (..., H, W) resampled by the
-    tap tables ytaps (dh, Ty) and xtaps (dw, Tx), each an (index, weight)
-    pair of tensors on src's device, then `* scale`; f32 (..., dh, dw).
-
-    The kernel's loop, output by output: for each tap of the second axis,
-    the first axis's sum over its taps, each sum starting from its first
-    term and adding the others in table order; the first-pass values each
-    output needs are made for it, as the kernel makes them.  So
-    `resample_taps(x, bilinear_taps(H, dh), bilinear_taps(W, dw), False,
-    s)` equals `resize_bilinear_f32(x, dw, dh) * s` and the area tables
-    vertical first `resize_area_f32(x, dw, dh) * s`, to the bit."""
-    (iy, wy), (ix, wx) = ytaps, xtaps
-    iy, ix = iy.long(), ix.long()
-    src = src.float()
-    acc = None
-    if vertical_first:
-        for i in range(ix.shape[1]):
-            cols = src.index_select(-1, ix[:, i])
-            v = None
-            for j in range(iy.shape[1]):
-                term = cols.index_select(-2, iy[:, j]) * wy[:, j, None]
-                v = term if v is None else v + term
-            term = v * wx[:, i]
-            acc = term if acc is None else acc + term
-    else:
-        for j in range(iy.shape[1]):
-            rows = src.index_select(-2, iy[:, j])
-            h = None
-            for i in range(ix.shape[1]):
-                term = rows.index_select(-1, ix[:, i]) * wx[:, i]
-                h = term if h is None else h + term
-            term = h * wy[:, j, None]
-            acc = term if acc is None else acc + term
-    return acc * scale
 
 
 def bilinear_rows(src: torch.Tensor, dw: int, sy0: torch.Tensor,

@@ -1249,16 +1249,43 @@ def test_resample_row_blocks(dev, sh, dh, parts):
 
 
 def test_resample_input_checks(dev):
-    from optical_flow_tpu_torch.kernels.resample import _table, resample
+    from optical_flow_tpu_torch.kernels.resample import _resample, _table
     x = torch.zeros((1, 2, 8, 8), device=dev)
     tab = _table("bilinear", 8, 16, dev)
     with pytest.raises(TypeError):
-        resample(x.double(), tab, tab, False)
+        _resample(x.double(), tab, tab, False)
     with pytest.raises(ValueError):
-        resample(x, (tab[0].long(), tab[1]), tab, False)        # int64 indices
+        _resample(x, tab._replace(index=tab.index.long()), tab, False)     # int64 indices
+    with pytest.raises(ValueError):                                         # tables off the card
+        _resample(x, tab._replace(index=tab.index.cpu(), weight=tab.weight.cpu()), tab, False)
     with pytest.raises(ValueError):
-        resample(x, (tab[0].cpu(), tab[1].cpu()), tab, False)   # tables off the card
+        _resample(x.cpu(), _table("bilinear", 8, 16, torch.device("cpu")),
+                  _table("bilinear", 8, 16, torch.device("cpu")), False)   # a CPU tensor
     assert kernels.LAUNCHES["X1"] == 0
+
+
+def test_resample_tables_past_the_frame_raise(dev):
+    """A table built for a longer axis, or a row block shorter than its
+    table reaches, raises before a launch: the kernel reads no index past
+    the frame it is given."""
+    from optical_flow_tpu_torch.kernels.resample import _resample, _table, bilinear_rows
+    from optical_flow_tpu_torch.ops import resize
+    x = torch.zeros((1, 2, 8, 12), device=dev)
+    with pytest.raises(ValueError):
+        _resample(x, _table("bilinear", 9, 16, dev), _table("bilinear", 12, 24, dev), False)
+    with pytest.raises(ValueError):
+        _resample(x, _table("bilinear", 8, 16, dev), _table("area", 13, 6, dev), True)
+    s0, s1, _ = resize._coeffs_f32(270, 540)
+    a, b = 100, 200
+    lo, hi = int(s0[a]), int(s1[b - 1]) + 1
+    frame = torch.zeros((1, 2, 270, 48), device=dev)
+    with pytest.raises(ValueError):                         # a row short at the bottom
+        bilinear_rows(frame[..., lo:hi - 1, :], 96, 270, 540, a, b, lo)
+    with pytest.raises(ValueError):                         # the block's start past lo
+        bilinear_rows(frame[..., lo + 1:hi, :], 96, 270, 540, a, b, lo + 1)
+    assert kernels.LAUNCHES["X1"] == 0
+    assert bilinear_rows(frame[..., lo:hi, :], 96, 270, 540, a, b, lo).shape == (1, 2, b - a, 96)
+    assert kernels.LAUNCHES["X1"] == 1
 
 
 def _ulps(got, ref):
@@ -1276,7 +1303,8 @@ def test_magnitude_sum_kernel(dev, b, h, w):
     gen = torch.Generator(dev).manual_seed(b * h)
     flow = (torch.rand((b, 2, h, w), generator=gen, device=dev) - 0.5) * 12.0
     got = magnitude_sum(flow)
-    assert kernels.LAUNCHES["X2"] == 1 and got.shape == (b,)
+    # the span sums, and the combine past one span of 2^17 pixels
+    assert kernels.LAUNCHES["X2"] == (1 if h * w <= 1 << 17 else 2) and got.shape == (b,)
     assert int(_ulps(got, plain(flow[:, 0], flow[:, 1])).max()) <= 1
     assert torch.equal(magnitude_sum(flow), got)
     for i in {0, b // 2, b - 1}:

@@ -1,6 +1,6 @@
 """X1 (`kernels/resample.py`) and X2 (`kernels/magnitude_sum.py`) on the
 CPU: their tables and plain versions against the JAX package, and X1's
-table loop (`ops/resize.py:resample_taps`, the kernel's pass order and
+table loop (`resample_taps` below, the kernel's pass order and
 per-output recomputation in PyTorch) against the plain resizes it
 replaces on the card.
 
@@ -58,13 +58,46 @@ def _tables(kind, s_len, d_len):
     return resample._table(kind, s_len, d_len, CPU)
 
 
+def resample_taps(src, ytab, xtab, vertical_first, scale=1.0):
+    """X1's function in plain PyTorch: src (..., H, W) resampled by the
+    tap tables ytab (dh, Ty) and xtab (dw, Tx), then `* scale`; f32
+    (..., dh, dw).
+
+    The kernel's loop, output by output: for each tap of the second axis,
+    the first axis's sum over its taps, each sum starting from its first
+    term and adding the others in table order; the first-pass values each
+    output needs are made for it, as the kernel makes them."""
+    iy, wy, ix, wx = ytab.index.long(), ytab.weight, xtab.index.long(), xtab.weight
+    src = src.float()
+    acc = None
+    if vertical_first:
+        for i in range(ix.shape[1]):
+            cols = src.index_select(-1, ix[:, i])
+            v = None
+            for j in range(iy.shape[1]):
+                term = cols.index_select(-2, iy[:, j]) * wy[:, j, None]
+                v = term if v is None else v + term
+            term = v * wx[:, i]
+            acc = term if acc is None else acc + term
+    else:
+        for j in range(iy.shape[1]):
+            rows = src.index_select(-2, iy[:, j])
+            h = None
+            for i in range(ix.shape[1]):
+                term = rows.index_select(-1, ix[:, i]) * wx[:, i]
+                h = term if h is None else h + term
+            term = h * wy[:, j, None]
+            acc = term if acc is None else acc + term
+    return acc * scale
+
+
 def _loop_area(x, dw, dh, scale):
     """`resize_area` as the card runs it, with the table loop for X1."""
     h, w = x.shape[-2:]
     plan = resample.area_plan(h, w, dh, dw)
     for k, (vert, horiz, vertical_first) in enumerate(plan):
-        x = resize.resample_taps(x, _tables(*vert), _tables(*horiz), vertical_first,
-                                 scale if k == len(plan) - 1 else 1.0)
+        x = resample_taps(x, _tables(*vert), _tables(*horiz), vertical_first,
+                          scale if k == len(plan) - 1 else 1.0)
     return x
 
 
@@ -80,8 +113,8 @@ def _loop_area(x, dw, dh, scale):
 ])
 def test_table_loop_is_resize_bilinear_times_scale(n, h, w, dh, dw, scale, odd):
     x = _flow(n, h, w, seed=h + w, odd=odd)
-    got = resize.resample_taps(x, _tables("bilinear", h, dh), _tables("bilinear", w, dw),
-                               False, scale)
+    got = resample_taps(x, _tables("bilinear", h, dh), _tables("bilinear", w, dw),
+                        False, scale)
     assert _bit_equal(got, resize.resize_bilinear_f32(x, dw, dh) * scale)
 
 
@@ -121,8 +154,9 @@ def test_table_loop_on_row_blocks_is_bilinear_rows(sh, dh, w, dw, parts):
         a, b = int(rows[0]), int(rows[-1]) + 1
         lo, hi = int(s0[a]), int(s1[b - 1]) + 1
         src = x[..., lo:hi, :]
-        got = resize.resample_taps(src, resample._row_block_table(sh, dh, a, b, lo, CPU),
-                                   _tables("bilinear", w, dw), False, 2.0)
+        tab = resample._row_block_table(sh, dh, a, b, lo, CPU)
+        assert (tab.lo, tab.hi) == (0, hi - lo)
+        got = resample_taps(src, tab, _tables("bilinear", w, dw), False, 2.0)
         assert _bit_equal(got, resize.bilinear_rows(src, dw, sy0[a:b] - lo, sy1[a:b] - lo,
                                                     ty[a:b]) * 2.0)
         assert _bit_equal(resample.bilinear_rows(src, dw, sh, dh, a, b, lo, 2.0), got)
@@ -134,8 +168,9 @@ def test_table_loop_on_row_blocks_is_bilinear_rows(sh, dh, w, dw, parts):
                                          (2, 1), (37, 37), (1080, 68), (7, 3)])
 def test_bilinear_table_is_jax_s_coeffs(s_len, d_len):
     s0, s1, t = jresize._coeffs_f32(s_len, d_len)
-    idx, wt = _tables("bilinear", s_len, d_len)
+    idx, wt, lo, hi = _tables("bilinear", s_len, d_len)
     assert idx.dtype == torch.int32 and wt.dtype == torch.float32
+    assert (lo, hi) == (int(s0.min()), int(s1.max()) + 1)
     np.testing.assert_array_equal(idx.numpy(), np.stack([s0, s1], 1))
     np.testing.assert_array_equal(wt.numpy(), np.stack([np.float32(1.0) - t, t], 1))
 
@@ -145,7 +180,8 @@ def test_bilinear_table_is_jax_s_coeffs(s_len, d_len):
 def test_area_table_is_jax_s_area_weights(s_len, d_len):
     """Scattered back into a dense (d_len, s_len) matrix, the table (its
     zero-weight pads at index 0 included) is JAX's `_area_weights`."""
-    idx, wt = _tables("area", s_len, d_len)
+    idx, wt, lo, hi = _tables("area", s_len, d_len)
+    assert (lo, hi) == (0, s_len)
     dense = np.zeros((d_len, s_len), np.float32)
     for d in range(d_len):
         for i, v in zip(idx[d].tolist(), wt[d].tolist()):
@@ -157,7 +193,7 @@ def test_area_table_is_jax_s_area_weights(s_len, d_len):
 
 def test_cpu_wrappers_run_the_plain_versions():
     """On CPU tensors the wrappers run the plain versions and launch
-    nothing."""
+    nothing; the launch itself takes a CUDA tensor only."""
     kernels.reset_launches()
     x = _flow(2, 17, 23, seed=1, odd=True)
     assert _bit_equal(resample.resize_bilinear(x, 46, 34, 2.0),
@@ -165,8 +201,8 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert _bit_equal(resample.resize_bilinear(x, 23, 17), x)
     assert _bit_equal(resample.resize_area(x, 5, 4, 0.25), resize.resize_area_f32(x, 5, 4) * 0.25)
     ytab, xtab = _tables("bilinear", 17, 34), _tables("bilinear", 23, 46)
-    assert _bit_equal(resample.resample(x, ytab, xtab, False, 2.0),
-                      resize.resample_taps(x, ytab, xtab, False, 2.0))
+    with pytest.raises(ValueError):
+        resample._resample(x, ytab, xtab, False, 2.0)
     assert _bit_equal(magnitude_sum(x), polar.magnitude_sums(x[:, 0], x[:, 1]))
     with pytest.raises(ValueError):
         magnitude_sum(x[:, :1])
