@@ -21,9 +21,12 @@ equal to K2 -> K1 to the bit, with the share of its M pixels that took
 the per-pixel path, ptxas's report and its occupancy at both tile
 widths; K2 and K5b with ptxas's report too; X1, the resample that
 replaces the JAX package's fused resize glue, equal to the bit at the
-three x2 upsamples, the seed's downsample read in its (B, H, W, 2) layout
-and the levels=5 resizes; X2, the per-pair magnitude sum, within one f32
-ulp at 1080p B=16 and 72x129 B=128, equal across runs and batch sizes),
+three x2 upsamples, the seed's downsample read in its (B, H, W, 2)
+layout, the levels=5 resizes, the 72x129 B=128 chunk's upsample and two
+8K halo row blocks, each with its device time and the launch plan it
+took; X2, the per-pair magnitude sum, within one f32 ulp at 1080p B=16
+and 72x129 B=128, equal across runs and batch sizes, with its device
+time beside the library's),
 and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
@@ -70,8 +73,9 @@ time per kernel, the kernels launched and the host-to-device copies per
 call and the busy share of the 1080p flow call under flags 0, 256 and 4,
 with levels=5 and with winsize 63, of the 8K pair and of the extractor's
 72x129 chunk (torch.profiler); and `profile_extractor_corpus` (the
-extractor's loop at 72x129).  --profile-only builds and runs those alone,
-with no checks and no result line.
+extractor's loop at 72x129).  --profile-only builds, runs the X1 and X2
+kernel phases (`kernel_X1`, `kernel_X2`: their checks, event and device
+times) and then the profile phases, and prints no result line.
 One JSON line per phase; then the card's nvidia-smi line, the kernels
 summary (each kernel's launches on the paths, its error against its
 plain version, its time, its plain version's, the bound of its bytes or
@@ -216,6 +220,43 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn's kernels over `reps` runs, after one
+    warm-up run: the sum of the CUDA events' device time in a
+    torch.profiler trace, so the host's time between launches is left
+    out (cuda_ms counts it where the launches do not queue up).  A trace
+    that caught no device event (it happens now and then) is taken
+    again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(device_events(prof, reps)["by_name"].values())
+        if ms > 0:
+            return ms
+    raise RuntimeError("check failed: no device time traced")
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host microseconds of one call of fn, launches enqueued and not
+    waited for (a shape whose kernels take less than the call keeps the
+    queue short)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def frames(h: int, w: int, dev, batch: int = BATCH, shift=SHIFT):
@@ -406,17 +447,22 @@ def library_box_solve(winsize: int):
         F.avg_pool2d(F.pad(M, (m, m, m, m), mode="replicate"), winsize, stride=1), 1.0)
 
 
-def run_cases(kid: str, cases, stats, key=None, phase=None, **extra) -> None:
+def run_cases(kid: str, cases, stats, key=None, phase=None, device_time=False,
+              **extra) -> None:
     """Each (label, kernel fn, plain fn, work, library fn or None) case:
     the kernel against its plain version within KERNEL_TOL[kid], then
-    kernel, plain version and library call timed with CUDA events, and
-    the bound of `work` (bytes, ops).  Sums over the pyramid levels
-    (labels "L<k>...") and the largest error over every case go to
-    stats[key or kid]; one JSON line."""
+    kernel, plain version and library call timed with CUDA events (with
+    device_time, kernel and library call also by their device time in a
+    profile: `device_ms`, `library_device_ms`), and the bound of `work`
+    (bytes, ops).  Sums over the pyramid levels (labels "L<k>...") and
+    the largest error over every case go to stats[key or kid]; one JSON
+    line."""
     import torch
     atol, rtol = KERNEL_TOL[kid]
     levels, max_abs = [], 0.0
     sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    if device_time:
+        sums.update(device_ms=0.0, library_device_ms=0.0)
     by_time = {"bytes": 0.0, "operations": 0.0}
     has_library = True
     for label, kern_fn, plain_fn, work, lib_fn in cases:
@@ -429,6 +475,10 @@ def run_cases(kid: str, cases, stats, key=None, phase=None, **extra) -> None:
                "plain_ms": cuda_ms(plain_fn, 3)}
         row["bound_ms"], row["bound_by"] = bound(work)
         row["library_ms"] = None if lib_fn is None else cuda_ms(lambda: lib_fn(), 10)
+        if device_time:
+            row["device_ms"] = device_ms(kern_fn, 10)
+            row["library_device_ms"] = None if lib_fn is None else device_ms(lib_fn, 10)
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
         levels.append(row)
         if label.startswith("L"):
             for k in sums:
@@ -440,6 +490,9 @@ def run_cases(kid: str, cases, stats, key=None, phase=None, **extra) -> None:
     stats[key or kid] = {**sums, "max_abs_err": max_abs,
                          "bound_by": max(by_time, key=by_time.get),
                          "library_ms": sums["library_ms"] if has_library else None}
+    if device_time:
+        extra.update(device_ms_sum=sums["device_ms"],
+                     library_device_ms_sum=sums["library_device_ms"] if has_library else None)
     emit(phase or f"kernel_{kid}", name=KERNEL_INFO[kid][0], atol=atol, rtol=rtol,
          levels=levels, ms_sum=sums["ms"], plain_ms_sum=sums["plain_ms"],
          bound_ms_sum=sums["bound_ms"],
@@ -988,24 +1041,42 @@ def kernel_k6_phase(both, stats) -> None:
     run_cases("K6", cases, stats, ptxas=ptxas_report("gauss"), occupancy=occupancy)
 
 
+def x1_path(x, ytab, xtab, vertical_first: bool) -> dict | None:
+    """The launch plan X1's host picks for x and the tables
+    (`kernels/resample.py:plan`): path, tile, staged band, shared memory
+    and planes a block; None for a package whose X1 has no plan (one
+    generic kernel)."""
+    from optical_flow_tpu_torch.kernels import resample
+    plan = getattr(resample, "plan", None)
+    return None if plan is None else plan(x, ytab, xtab, vertical_first)._asdict()
+
+
 def kernel_x1_phase(dev, stats) -> None:
     """X1 against its plain version, to the bit, at the shapes of the
     1080p B=16 paths: the flow's three x2 upsamples with their scale
     (labels L2, L1, L0: the level made; the kernels line's sum), the
     seed's INTER_AREA downsample to L3 read in its (B, H, W, 2) layout,
-    and the levels=5 pyramid's two resizes after K6 (of the (32, 1080,
-    1920) f32 blur).  Library: F.interpolate (bilinear with half-pixel
-    centres, or area) times the scale."""
+    the levels=5 pyramid's two resizes after K6 (of the (32, 1080, 1920)
+    f32 blur), the extractor's 72x129 B=128 chunk's upsample and the halo
+    path's row-block resizes at 8K (mesh_sp_8k's second block).
+    Library: F.interpolate (bilinear with half-pixel centres, or area)
+    times the scale.  Each case is timed with events and by its device
+    time (`device_ms`), and names the launch plan its host picked
+    (`paths`); `host_us` is the host's time of one launch at the L2 and
+    72x129 upsamples."""
     import torch
     import torch.nn.functional as F
+    from optical_flow_tpu_torch.kernels import resample
     from optical_flow_tpu_torch.kernels.resample import area_plan, resize_area, resize_bilinear
     from optical_flow_tpu_torch.models.farneback.params import build_plan
-    from optical_flow_tpu_torch.ops.resize import (_area_taps, bilinear_taps,
-                                                   resize_area_f32, resize_bilinear_f32)
+    from optical_flow_tpu_torch.ops.resize import (_area_taps, _coeffs_f32, bilinear_taps,
+                                                   coeff_tensors, resize_area_f32,
+                                                   resize_bilinear_f32)
+    from optical_flow_tpu_torch.ops.resize import bilinear_rows as bilinear_rows_plain
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
     gen = torch.Generator(device=dev).manual_seed(13)
-    cases = []
+    cases, paths, host = [], {}, {}
 
     def bilinear(label, x, dh, dw, scale):
         cases.append((label, lambda: resize_bilinear(x, dw, dh, scale),
@@ -1014,25 +1085,62 @@ def kernel_x1_phase(dev, stats) -> None:
                                     bilinear_taps(x.shape[-1], dw)[0], False),
                       lambda: F.interpolate(x if x.dim() == 4 else x[:, None], size=(dh, dw),
                                             mode="bilinear", align_corners=False) * scale))
+        paths[label] = x1_path(x, resample._table("bilinear", x.shape[-2], dh, dev),
+                               resample._table("bilinear", x.shape[-1], dw, dev), False)
+        return x
 
     levels = build_plan(1080, 1920, FarnebackConfig()).levels
     for coarse, fine in zip(levels, levels[1:]):
         flow = random_flow((BATCH, 2, coarse.height, coarse.width), gen, dev)
         bilinear(f"L{fine.k}", flow, fine.height, fine.width, 2.0)
+        if fine.k == 2:
+            host["L2"] = host_us(lambda: resize_bilinear(flow, fine.width, fine.height, 2.0))
     seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev).movedim(-1, 1)
     l3 = levels[0]
     plan = area_plan(1080, 1920, l3.height, l3.width)
     require(len(plan) == 1, f"X1: the seed's downsample takes {len(plan)} launches")
-    cases.append((f"seed_area_L{l3.k}_strided", lambda: resize_area(seed, l3.width, l3.height, 0.125),
+    label = f"seed_area_L{l3.k}_strided"
+    cases.append((label, lambda: resize_area(seed, l3.width, l3.height, 0.125),
                   lambda: resize_area_f32(seed, l3.width, l3.height) * 0.125,
                   work_resample(seed, _area_taps(1080, l3.height)[0],
                                 _area_taps(1920, l3.width)[0], True),
                   lambda: F.interpolate(seed, size=(l3.height, l3.width), mode="area") * 0.125))
+    paths[label] = x1_path(seed, resample._table(*plan[0][0], dev),
+                           resample._table(*plan[0][1], dev), True)
     blurred = torch.rand((2 * BATCH, 1080, 1920), generator=gen, device=dev) * 255.0
     for lv in build_plan(1080, 1920, FarnebackConfig(levels=5)).levels:
         if lv.k >= 4:
             bilinear(f"deep5_resize_L{lv.k}", blurred, lv.height, lv.width, 1.0)
-    run_cases("X1", cases, stats, tolerance="equal to the bit", ptxas=ptxas_report("resample"))
+    coarse, fine = build_plan(72, 129, FarnebackConfig()).levels
+    chunk = random_flow((128, 2, coarse.height, coarse.width), gen, dev)
+    bilinear(f"chunk72x129_B128_L{fine.k}", chunk, fine.height, fine.width, 2.0)
+    host["chunk72x129_B128"] = host_us(lambda: resize_bilinear(chunk, fine.width,
+                                                               fine.height, 2.0))
+    # the halo path's per-block resizes (`parallel/halo.py:resize_bilinear`,
+    # mesh_sp_8k's 1x2 mesh at 4320x7680): the second row block of the
+    # flow's x2 upsample to L0 and of the level resize to L1
+
+    def halo_block(label, x, dh, dw, scale):
+        sh, w = x.shape[-2:]
+        s0, s1, _ = _coeffs_f32(sh, dh)
+        a, b = dh // 2, dh
+        lo = int(s0[a])
+        src = x[..., lo:int(s1[b - 1]) + 1, :]
+        sy0, sy1, ty = coeff_tensors(sh, dh, dev)
+        rows = resample._row_block_table(sh, dh, a, b, lo, dev)
+        cases.append((label, lambda: resample.bilinear_rows(src, dw, sh, dh, a, b, lo, scale),
+                      lambda: bilinear_rows_plain(src, dw, sy0[a:b] - lo, sy1[a:b] - lo,
+                                                  ty[a:b]) * scale,
+                      work_resample(src, rows.index.cpu().numpy(), bilinear_taps(w, dw)[0],
+                                    False), None))
+        paths[label] = x1_path(src, rows, resample._table("bilinear", w, dw, dev), False)
+
+    halo_block("halo_8k_upsample_L0_block1", random_flow((1, 2, 2160, 3840), gen, dev),
+               4320, 7680, 2.0)
+    halo_block("halo_8k_level_L1_block1",
+               torch.rand((2, 4320, 7680), generator=gen, device=dev) * 255.0, 2160, 3840, 1.0)
+    run_cases("X1", cases, stats, tolerance="equal to the bit", device_time=True,
+              paths=paths, host_us=host, ptxas=ptxas_report("resample"))
 
 
 def kernel_x2_phase(dev, stats) -> None:
@@ -1040,7 +1148,9 @@ def kernel_x2_phase(dev, stats) -> None:
     f32 ulp per pair, equal across two runs, and each of a few pairs the
     same alone as in its batch; at 1080p B=16 (the kernels line's case)
     and 72x129 B=128.  Library: torch.linalg.vector_norm over the two
-    components, then the sum (f32)."""
+    components, then the sum (f32).  Kernel and library call are timed
+    with events and by their device time in a profile; `host_us` is the
+    host's time of one call."""
     import torch
     from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
     from optical_flow_tpu_torch.ops.polar import magnitude_sums
@@ -1059,14 +1169,21 @@ def kernel_x2_phase(dev, stats) -> None:
         require(torch.equal(got, again), f"X2 {b}x{h}x{w}: two runs differ")
         require(all(torch.equal(a, got[i:i + 1]) for a, i in zip(alone, (0, b // 2, b - 1))),
                 f"X2 {b}x{h}x{w}: a pair alone differs from the batch")
+
+        def library():
+            return torch.linalg.vector_norm(flow, dim=1).sum((-2, -1))
+
         row = {"case": f"B{b}_{h}x{w}", "max_ulps": ulps,
                "max_abs_err": float((got - ref).abs().max()),
                "ms": cuda_ms(lambda: magnitude_sum(flow), 20),
                "plain_ms": cuda_ms(lambda: magnitude_sums(flow[:, 0], flow[:, 1]), 5),
-               "library_ms": cuda_ms(lambda: torch.linalg.vector_norm(flow, dim=1).sum((-2, -1)),
-                                     20)}
+               "library_ms": cuda_ms(library, 20),
+               "device_ms": device_ms(lambda: magnitude_sum(flow), 20),
+               "library_device_ms": device_ms(library, 20),
+               "host_us": host_us(lambda: magnitude_sum(flow))}
         row["bound_ms"], row["bound_by"] = bound(work_magnitude_sum(flow))
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
         rows.append(row)
         del flow
     stats["X2"] = {k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1864,8 +1981,8 @@ def main(argv: list[str]) -> int:
                              "flags 0, 256 and 4, levels=5 and winsize 63, "
                              "and the 8K pair (PERF.md section 5)")
     parser.add_argument("--profile-only", action="store_true",
-                        help="build and run the profile phases alone (no checks "
-                             "of the kernels or paths, no result line)")
+                        help="build and run the X1 and X2 kernel phases and the "
+                             "profile phases alone (no other checks, no result line)")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1889,6 +2006,10 @@ def main(argv: list[str]) -> int:
          kernel_build_s=report.seconds, nvcc_runs=report.nvcc_runs,
          kernel_dir=str(_build.build_dir()))
     if args.profile_only:
+        kernel_x1_phase(dev, {})
+        torch.cuda.empty_cache()
+        kernel_x2_phase(dev, {})
+        torch.cuda.empty_cache()
         profile_phase(dev, power)
         print(power)
         return 0

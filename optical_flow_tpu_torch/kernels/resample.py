@@ -19,10 +19,24 @@ table order, then `* scale` as a separate f32 multiply, all built with
 plain resizes).  Bound on the card by bytes: the source read once, the
 output written once.
 
+The host plans each launch (`plan`) from the tables' per-tile spans,
+which each cached `Table` carries, and from x's strides: the band
+kernel (the bilinear resizes: a tile's tables staged in shared memory
+once, its source band once a plane with the next plane's in flight, 4
+outputs and one 16-byte store a thread), the columns kernel (INTER_AREA: source
+rows streamed with 16-byte loads into the tile's vertical sums, the
+seed's (B, H, W, 2) layout two pixels of both channels a load), or the
+generic kernel (an output a thread) where the band would not fit or the
+tiles would mostly cover nothing (the levels=5 resizes, the 72x129
+frames).  `tests/test_torch_kernel_tiles.py:emulate_x1` repeats each
+plan in numpy.  No path is a fallback: the plan is fixed by the shapes
+before the launch, and a failing launch raises.
+
 `resize_bilinear`, `resize_area` and `bilinear_rows` are the entries:
 each runs the plain version on a CPU tensor and X1 on a CUDA tensor.
 Each table carries the source span its indices reach, which the launch
-checks against the frame it is given, so that no table reads past it.
+checks against the frame it is given, so that no table reads past it;
+its dtypes, shape and device are fixed where it is made, once.
 """
 
 from __future__ import annotations
@@ -43,24 +57,51 @@ def _kernel():
     f = _build.library("resample").oft_resample
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f.argtypes = [p, q, q, q, q, i, i, i, i, p, p, i, p, p, i, i, ctypes.c_float, p,
-                  i, i, i, p]
+                  i, i, i, i, i, i, i, i, i, p]
     f.restype = i
     return f
 
 
+# `csrc/resample.cu`: output columns a tile of the band and columns
+# kernels, the tile lengths whose spans a table carries (1 to TILE_W
+# outputs, powers of two), and the dynamic shared memory a block may
+# take (the default limit, which needs no opt-in).
+TILE_W = 128
+TILE_LENGTHS = tuple(1 << k for k in range(TILE_W.bit_length()))
+SMEM = 48 * 1024
+PATHS = {"generic": 0, "band": 1, "columns": 2}
+
+
 class Table(NamedTuple):
-    """An axis's taps: (d_len, T) int32 source indices and f32 weights,
-    and the source span [lo, hi) the indices reach."""
+    """An axis's taps on one device: (d_len, T) int32 source indices and
+    f32 weights, the source span [lo, hi) the indices reach, `spans[k]`
+    the largest span (max - min + 1) of the indices of a tile of
+    TILE_LENGTHS[k] consecutive outputs (tiles from output 0)."""
     index: torch.Tensor
     weight: torch.Tensor
     lo: int
     hi: int
+    spans: tuple
+    device: torch.device
 
 
 def _to_table(idx: np.ndarray, wt: np.ndarray, device: torch.device) -> Table:
-    return Table(torch.as_tensor(np.ascontiguousarray(idx, np.int32), device=device),
-                 torch.as_tensor(np.ascontiguousarray(wt, np.float32), device=device),
-                 int(idx.min()), int(idx.max()) + 1)
+    """The table on `device`, checked once here: X1 reads it as it is at
+    every launch."""
+    idx = np.ascontiguousarray(idx, np.int32)
+    wt = np.ascontiguousarray(wt, np.float32)
+    if idx.ndim != 2 or idx.shape != wt.shape or idx.shape[0] < 1 or idx.shape[1] < 1:
+        raise ValueError(f"a table is (d_len, T >= 1) indices and weights, got "
+                         f"{idx.shape} and {wt.shape}")
+    first, last = idx.min(1), idx.max(1)
+    spans = []
+    for n in TILE_LENGTHS:
+        starts = np.arange(0, len(idx), n)
+        spans.append(int((np.maximum.reduceat(last, starts)
+                          - np.minimum.reduceat(first, starts)).max()) + 1)
+    lo, hi = int(first.min()), int(last.max()) + 1
+    return Table(torch.as_tensor(idx, device=device), torch.as_tensor(wt, device=device),
+                 lo, hi, tuple(spans), torch.device(device))
 
 
 @functools.lru_cache(maxsize=512)
@@ -98,28 +139,109 @@ def _planes(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1, lead[-1]) + tuple(x.shape[-2:]))
 
 
+class Plan(NamedTuple):
+    """One X1 launch as the host plans it (`plan`): the kernel ("band":
+    the horizontal pass first from a staged band; "columns": the vertical
+    pass first, rows streamed; "generic": an output a thread), the floats
+    a source load moves (4: 16 bytes of a plane's row; 2: 16 bytes of a
+    (B, H, W, 2) layout, both channels of 2 pixels; 1: one, any strides),
+    the tile's output rows (its columns are TILE_W), the staged band's
+    rows (band) and columns a row (band; columns: the vertical sums' row,
+    a channel), and the block's dynamic shared memory in bytes.  The C
+    entry cuts the planes (pairs of planes where load is 2) into groups
+    from the card's resident blocks (`plane_groups`), each block walking
+    its group's planes with the tile's tables staged once."""
+    path: str
+    load: int
+    tile_h: int
+    band_h: int
+    band_w: int
+    smem: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _tiled(dh: int, dw: int, tile_h: int) -> bool:
+    """Whether tile_h x TILE_W tiles cover a dh x dw plane with at most
+    half again its area: past that (a 129-wide frame's second column of
+    tiles is 1 wide) the tiles' staging costs more than their reuse
+    saves, and the generic kernel runs."""
+    return 2 * (-(-dh // tile_h) * tile_h) * (-(-dw // TILE_W) * TILE_W) <= 3 * dh * dw
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(vertical_first: bool, load: int, ytab: tuple, xtab: tuple) -> Plan:
+    """`plan` from the launch's shape: ytab, xtab = (outputs, taps,
+    spans)."""
+    (dh, ty, yspans), (dw, tx, xspans) = ytab, xtab
+    col_span = xspans[-1]
+    tables = 8 * TILE_W * tx
+    if not vertical_first:
+        load = 4 if load == 4 else 1
+        band_w = _round4(col_span + (3 if load == 4 else 0))
+        for tile_h in (16, 8):
+            band_h = yspans[TILE_LENGTHS.index(tile_h)]
+            smem = 2 * 4 * band_h * band_w + 8 * tile_h * ty + tables
+            if smem <= SMEM and _tiled(dh, dw, tile_h):
+                return Plan("band", load, tile_h, band_h, band_w, smem)
+    else:
+        channels = 2 if load == 2 else 1
+        band_w = _round4(col_span + load - 1)
+        pitch = band_w + band_w // 32            # a word of padding every 32
+        for tile_h in (8, 4, 2, 1):
+            smem = 4 * channels * tile_h * pitch + 8 * tile_h * ty + tables
+            if channels * tile_h <= 8 and smem <= SMEM and _tiled(dh, dw, tile_h):
+                return Plan("columns", load, tile_h, 0, band_w, smem)
+    return Plan("generic", 1, 0, 0, 0, 0)
+
+
+def plan(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool) -> Plan:
+    """The X1 launch for x (..., H, W) and the tables, decided on the host
+    before the launch from the tables' spans and x's strides (the same on
+    a CPU tensor): the band kernel for the horizontal pass first and the
+    columns kernel for the vertical pass first where the tile's band fits
+    SMEM (a bilinear downsample past about 2x does not: its taps skip
+    rows and columns) and the tiles cover the output planes without much
+    waste (`_tiled`), else the generic kernel.  Loads move 16 bytes where
+    x's planes and rows are 16-byte aligned with unit column stride, or
+    where x is the (B, H, W, 2) layout (C == 2, channel stride 1, column
+    stride 2: the seed); else one float."""
+    return _plan_of(_planes(x), ytab, xtab, vertical_first)
+
+
+def _plan_of(v: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool) -> Plan:
+    """`plan` for x as its (N, C, H, W) view v."""
+    c = v.shape[1]
+    sn, sc, sh, sw = v.stride()
+    aligned = v.data_ptr() % 16 == 0 and sn % 4 == 0 and sh % 4 == 0
+    if aligned and sw == 1 and sc % 4 == 0:
+        load = 4
+    elif aligned and c == 2 and sc == 1 and sw == 2:
+        load = 2
+    else:
+        load = 1
+    return _plan(vertical_first, load, (*ytab.index.shape, ytab.spans),
+                 (*xtab.index.shape, xtab.spans))
+
+
 def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
               scale: float = 1.0) -> torch.Tensor:
     """One X1 launch: (..., H, W) f32 on the card, any strides ->
     contiguous (..., dh, dw) f32, resampled by the tables ytab (dh, Ty)
-    and xtab (dw, Tx) on x's device, then `* scale`.  The entries above
-    send a CPU tensor to the plain resizes; here it raises."""
+    and xtab (dw, Tx) on x's device, then `* scale`, by the kernel `plan`
+    picks.  The entries above send a CPU tensor to the plain resizes;
+    here it raises."""
     if not on_cuda(x):
         raise ValueError("X1 launches on a CUDA tensor; a CPU tensor takes the plain resize")
     if x.dtype != torch.float32:
         raise TypeError(f"x has dtype {x.dtype}, expected torch.float32")
     dev = x.device
-    iy, wy, ix, wx = ytab.index, ytab.weight, xtab.index, xtab.weight
-    for name, t, dt in (("ytab index", iy, torch.int32), ("ytab weight", wy, torch.float32),
-                        ("xtab index", ix, torch.int32), ("xtab weight", wx, torch.float32)):
-        if t.device != dev or t.dtype != dt or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D {dt} tensor on {dev}")
-    if iy.shape != wy.shape or ix.shape != wx.shape:
-        raise ValueError("each table's index and weight shapes must agree")
-    dh, ty = iy.shape
-    dw, tx = ix.shape
-    if ty < 1 or tx < 1:
-        raise ValueError("each table needs at least one tap")
+    if ytab.device != dev or xtab.device != dev:
+        raise ValueError(f"the tables are on {ytab.device} and {xtab.device}, x on {dev}")
+    dh, ty = ytab.index.shape
+    dw, tx = xtab.index.shape
     v = _planes(x)
     n, c, h, w = v.shape
     out = torch.empty(tuple(x.shape[:-2]) + (dh, dw), dtype=torch.float32, device=dev)
@@ -131,10 +253,13 @@ def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
         if tab.lo < 0 or tab.hi > length:
             raise ValueError(f"{name} reads source [{tab.lo}, {tab.hi}), past a "
                              f"length of {length}")
+    pl = _plan_of(v, ytab, xtab, vertical_first)
     sn, sc, sh, sw = v.stride()
     rc = _kernel()(v.data_ptr(), sn, sc, sh, sw, c, n * c, h, w,
-                   iy.data_ptr(), wy.data_ptr(), ty, ix.data_ptr(), wx.data_ptr(), tx,
+                   ytab.index.data_ptr(), ytab.weight.data_ptr(), ty,
+                   xtab.index.data_ptr(), xtab.weight.data_ptr(), tx,
                    int(vertical_first), float(scale), out.data_ptr(), dh, dw,
+                   PATHS[pl.path], pl.load, pl.tile_h, pl.band_h, pl.band_w, pl.smem,
                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "resample")
     LAUNCHES["X1"] += 1

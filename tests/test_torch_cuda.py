@@ -1249,19 +1249,88 @@ def test_resample_row_blocks(dev, sh, dh, parts):
 
 
 def test_resample_input_checks(dev):
-    from optical_flow_tpu_torch.kernels.resample import _resample, _table
+    """The launch takes f32 on the card and tables made for x's device;
+    a table's dtypes, shape and contiguity are checked where it is made
+    (once: tables are cached per device), not at every launch."""
+    from optical_flow_tpu_torch.kernels.resample import _resample, _table, _to_table
     x = torch.zeros((1, 2, 8, 8), device=dev)
     tab = _table("bilinear", 8, 16, dev)
+    cpu = torch.device("cpu")
     with pytest.raises(TypeError):
         _resample(x.double(), tab, tab, False)
-    with pytest.raises(ValueError):
-        _resample(x, tab._replace(index=tab.index.long()), tab, False)     # int64 indices
     with pytest.raises(ValueError):                                         # tables off the card
-        _resample(x, tab._replace(index=tab.index.cpu(), weight=tab.weight.cpu()), tab, False)
+        _resample(x, _table("bilinear", 8, 16, cpu), tab, False)
     with pytest.raises(ValueError):
-        _resample(x.cpu(), _table("bilinear", 8, 16, torch.device("cpu")),
-                  _table("bilinear", 8, 16, torch.device("cpu")), False)   # a CPU tensor
+        _resample(x.cpu(), _table("bilinear", 8, 16, cpu),
+                  _table("bilinear", 8, 16, cpu), False)                   # a CPU tensor
+    with pytest.raises(ValueError):                                         # shapes disagree
+        _to_table(np.zeros((16, 2), np.int64), np.zeros((16, 3), np.float32), dev)
+    with pytest.raises(ValueError):                                         # no taps
+        _to_table(np.zeros((16, 0), np.int64), np.zeros((16, 0), np.float32), dev)
+    made = _to_table(np.zeros((16, 2), np.int64), np.ones((16, 2), np.float64), dev)
+    assert made.index.dtype == torch.int32 and made.weight.dtype == torch.float32
+    assert made.index.is_contiguous() and made.index.device == made.device == x.device
     assert kernels.LAUNCHES["X1"] == 0
+
+
+# (label, source layout and shape, resize, dh, dw, the plan's path and load):
+# tile edges (dw % 4 != 0, a plane count not a multiple of a block's),
+# rows and planes not 16-byte aligned (a view 1 column into a wider
+# frame), a row's 16-byte loads ending past the frame's width (a view of
+# the first w columns of a frame 2 wider), the strided seed, and the
+# generic kernel's shapes
+RESAMPLE_PLAN_CASES = [
+    ("x2_7_planes", "planar", (1, 7, 540, 960), "bilinear", 1080, 1920, ("band", 4)),
+    ("x2_ragged_dw", "planar", (2, 2, 37, 64), "bilinear", 73, 127, ("band", 4)),
+    ("x2_offset_view", "offset", (2, 2, 37, 62), "bilinear", 73, 123, ("band", 1)),
+    ("x2_pairs", "pairs", (2, 2, 37, 62), "bilinear", 73, 124, ("band", 1)),
+    ("x2_narrow_view", "narrow", (2, 2, 37, 62), "bilinear", 73, 124, ("band", 4)),
+    ("half_tile8", "planar", (2, 2, 400, 1024), "bilinear", 200, 512, ("band", 4)),
+    ("x2_chunk_72x129", "planar", (3, 2, 36, 64), "bilinear", 72, 129, ("generic", 1)),
+    ("eighth", "planar", (2, 2, 64, 64), "bilinear", 8, 8, ("generic", 1)),
+    ("quarter_past_smem", "planar", (1, 2, 400, 640), "bilinear", 100, 160, ("generic", 1)),
+    ("area_pairs", "pairs", (2, 2, 24, 480), "area", 6, 120, ("columns", 2)),
+    ("area_pairs_pads", "pairs", (3, 2, 30, 360), "area", 7, 101, ("columns", 2)),
+    ("area_seed_3", "pairs", (3, 2, 1080, 1920), "area", 135, 240, ("columns", 2)),
+    ("area_planar", "planar", (2, 2, 36, 1000), "area", 9, 125, ("columns", 4)),
+    ("area_narrow_view", "narrow", (2, 2, 36, 998), "area", 9, 125, ("columns", 4)),
+    ("area_offset_view", "offset", (2, 2, 36, 1000), "area", 9, 125, ("columns", 1)),
+    ("area_grow_rows", "pairs", (2, 2, 60, 512), "area", 120, 128, ("band", 1)),
+    ("area_grow_cols", "pairs", (2, 2, 512, 60), "area", 128, 120, ("columns", 2)),
+    ("area_seed_72x129", "pairs", (2, 2, 72, 129), "area", 36, 64, ("generic", 1)),
+    ("area_78_taps", "pairs", (2, 2, 40, 1000), "area", 5, 13, ("generic", 1)),
+]
+
+
+@pytest.mark.parametrize("label,layout,shape,kind,dh,dw,path", RESAMPLE_PLAN_CASES,
+                         ids=[c[0] for c in RESAMPLE_PLAN_CASES])
+def test_resample_plans(dev, label, layout, shape, kind, dh, dw, path):
+    """Each of X1's kernels (`resample.plan`'s band, columns and generic
+    paths, 16-byte and element loads) against the plain resize with its
+    scale, to the bit, NaN and +-inf placed where they spread; the path
+    the host picked is the one named."""
+    from optical_flow_tpu_torch.kernels.resample import _table, plan, resize_area
+    from optical_flow_tpu_torch.ops.resize import resize_area_f32, resize_bilinear_f32
+    n, c, h, w = shape
+    gen = torch.Generator(dev).manual_seed(h * w + n)
+    x = _odd_values((torch.rand((n, c, h, w + 2), generator=gen, device=dev) - 0.5) * 12.0)
+    if layout == "offset":
+        x = x[..., 1:w + 1]
+    elif layout == "narrow":
+        x = x[..., :w]
+    else:
+        x = x[..., :w].contiguous()
+        if layout == "pairs":
+            x = x.movedim(1, -1).contiguous().movedim(-1, 1)
+    if kind == "bilinear":
+        first = plan(x, _table("bilinear", h, dh, dev), _table("bilinear", w, dw, dev), False)
+        got, ref = resize_bilinear(x, dw, dh, 2.0), resize_bilinear_f32(x, dw, dh) * 2.0
+    else:
+        (vert, horiz, vertical_first), *_ = area_plan(h, w, dh, dw)
+        first = plan(x, _table(*vert, dev), _table(*horiz, dev), vertical_first)
+        got, ref = resize_area(x, dw, dh, 0.125), resize_area_f32(x, dw, dh) * 0.125
+    assert (first.path, first.load) == path
+    assert got.is_contiguous() and _bit_equal(got, ref)
 
 
 def test_resample_tables_past_the_frame_raise(dev):

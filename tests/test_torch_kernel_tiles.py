@@ -45,9 +45,10 @@ import torch
 from optical_flow_tpu_torch.kernels import blur_solve as k5b
 from optical_flow_tpu_torch.kernels import gauss as k6
 from optical_flow_tpu_torch.kernels import polyexp as k2
+from optical_flow_tpu_torch.kernels import resample
 from optical_flow_tpu_torch.kernels import update_gather as k7
 from optical_flow_tpu_torch.models.farneback import core
-from optical_flow_tpu_torch.ops import colorize
+from optical_flow_tpu_torch.ops import colorize, resize
 from optical_flow_tpu_torch.ops.color import hsv2bgr_planes
 from optical_flow_tpu_torch.ops.polar import fast_atan2_deg, magnitude
 from optical_flow_tpu_torch.oracle.synthetic import (smooth_texture_pair,
@@ -819,3 +820,306 @@ def test_k7_fit_box_cuts_to_the_region():
     assert (y0, x0 + bw) == (0, 300) and bw == 61 < bh
     assert k7_fit_box(5, 4, 0, 0, 0, 0, xc, n) == (0, 0, 0, 0)
     assert k7_fit_box(0, 0, 0, 0, 0, 0, 10, n) == (0, 0, 0, 0)
+
+
+# --- X1 (csrc/resample.cu) ---------------------------------------------------
+
+def _x1_flat(x):
+    """x's storage as a flat f32 numpy array and the element offset of
+    each of its (N, C) planes, as the kernel reads them through strides."""
+    v = resample._planes(x)
+    n, c, _, _ = v.shape
+    sn, sc, sh, sw = v.stride()
+    base = v.storage_offset()
+    flat = v.untyped_storage()
+    flat = torch.tensor([], dtype=torch.float32).set_(flat).numpy()
+    planes = base + (np.arange(n)[:, None] * sn + np.arange(c)[None, :] * sc).reshape(-1)
+    return flat, planes, (sh, sw)
+
+
+def _x1_stage_table(idx, wt, t0, nt, tile, lo):
+    """A tile's staged table: indices minus lo, the entries past the
+    frame's edge index 0 with weight 0."""
+    s_idx = np.zeros((tile, idx.shape[1]), np.int64)
+    s_wt = np.zeros((tile, idx.shape[1]), f32)
+    s_idx[:nt] = idx[t0:t0 + nt] - lo
+    s_wt[:nt] = wt[t0:t0 + nt]
+    return s_idx, s_wt
+
+
+def _x1_rows(band, s_ry, s_wy, s_cx, s_wx):
+    """The horizontal pass first from a staged band (P, band_h, band_w):
+    per output, each row tap's sum over the column taps from the first
+    term, weighted, summed from the first row tap -> (P, rows, cols)."""
+    acc = None
+    for k in range(s_ry.shape[1]):
+        rows = band[:, s_ry[:, k], :]
+        v = None
+        for m in range(s_cx.shape[1]):
+            term = rows[:, :, s_cx[:, m]] * s_wx[:, m]
+            v = term if v is None else v + term
+        term = v * s_wy[:, k][:, None]
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _x1_stores(o, out, planes, y0, x0, nr, nc, dw, stores):
+    """The tile's stores: groups of 4 consecutive outputs of a row, one
+    16-byte store where dw % 4 == 0 and the group lies in the row, else
+    one store each inside it."""
+    for g in range(0, nc, 4):
+        vec = dw % 4 == 0 and x0 + g + 4 <= dw
+        stores["vector" if vec else "scalar"] += nr * len(planes)
+        n = 4 if vec else min(4, dw - x0 - g)
+        out[planes, y0:y0 + nr, x0 + g:x0 + g + n] = o[:, :nr, g:g + n]
+
+
+def emulate_x1(x, ytab, xtab, vertical_first, scale):
+    """X1's launch on x (..., H, W) f32 as `resample.plan` plans it, in
+    numpy f32 -> ((N*C, dh, dw) f32, plan, store counts).
+
+    band: per output tile (tile_h x TILE_W), the staged tables (indices
+    relative to the band's first row and 4-aligned first column), the
+    band of source rows and columns they reach copied from the storage
+    through x's strides (entries past the frame left NaN: never read),
+    the sums in table order.  columns: the row table absolute, the
+    columns' vertical sums streamed from the storage a load at a time (4
+    columns; or (x0, y0, x1, y1) of 2 pixels of the (B, H, W, 2) layout,
+    split into the two channels' planes; or one element), then the
+    horizontal sums from them.  generic: each output from the tables."""
+    pl = resample.plan(x, ytab, xtab, vertical_first)
+    iy, wy = ytab.index.numpy(), ytab.weight.numpy()
+    ix, wx = xtab.index.numpy(), xtab.weight.numpy()
+    (dh, ty), (dw, tx) = iy.shape, ix.shape
+    flat, bases, (sh, sw) = _x1_flat(x)
+    H, W = x.shape[-2:]
+    NC = len(bases)
+    out = np.full((NC, dh, dw), np.nan, f32)
+    stores = {"vector": 0, "scalar": 0}
+    sc = f32(scale)
+    TW = resample.TILE_W
+    if pl.path == "generic":
+        plane = lambda q, r, c: flat[bases[q] + r[..., None] * sh + c * sw]
+        for q in range(NC):
+            if vertical_first:
+                acc = None
+                for i in range(tx):
+                    v = None
+                    for j in range(ty):
+                        term = plane(q, iy[:, j], ix[:, i]) * wy[:, j, None]
+                        v = term if v is None else v + term
+                    term = v * wx[:, i]
+                    acc = term if acc is None else acc + term
+            else:
+                acc = _x1_rows(flat[bases[q] + np.arange(H)[:, None] * sh
+                                    + np.arange(W) * sw][None], iy, wy, ix, wx)[0]
+            out[q] = acc * sc
+        stores["scalar"] = NC * dh * dw
+        return out, pl, stores
+    th, bw = pl.tile_h, pl.band_w
+    for y0 in range(0, dh, th):
+        nr = min(th, dh - y0)
+        for x0 in range(0, dw, TW):
+            nc = min(TW, dw - x0)
+            clo = int(ix[x0:x0 + nc].min())
+            if pl.load > 1:
+                clo -= clo % pl.load
+            s_cx, s_wx = _x1_stage_table(ix, wx, x0, nc, TW, clo)
+            assert 0 <= s_cx.min() and s_cx.max() < bw
+            cols = min(bw, W - clo)
+            if pl.path == "band":
+                rlo = int(iy[y0:y0 + nr].min())
+                s_ry, s_wy = _x1_stage_table(iy, wy, y0, nr, th, rlo)
+                assert 0 <= s_ry.min() and s_ry.max() < pl.band_h
+                rows = min(pl.band_h, H - rlo)
+                band = np.full((NC, pl.band_h, bw), np.nan, f32)
+                band[:, :rows, :cols] = flat[bases[:, None, None]
+                                             + (rlo + np.arange(rows))[:, None] * sh
+                                             + (clo + np.arange(cols)) * sw]
+                o = _x1_rows(band, s_ry, s_wy, s_cx, s_wx) * sc
+                _x1_stores(o, out, np.arange(NC), y0, x0, nr, nc, dw, stores)
+                continue
+            s_ry, s_wy = _x1_stage_table(iy, wy, y0, nr, th, 0)
+            items = bases[::2] if pl.load == 2 else bases
+            chans = 2 if pl.load == 2 else 1
+            v = np.full((len(items), chans, th, bw), np.nan, f32)
+            for j in range(ty):
+                rows = items[:, None] + s_ry[:nr, j][None, :] * sh     # (items, nr)
+                if pl.load == 2:
+                    # a 16-byte load: (x, y) of pixels c and c + 1
+                    c = np.arange(0, cols, 2)
+                    raw = flat[rows[..., None, None] + 2 * (clo + c)[:, None] + np.arange(4)]
+                    val = np.empty((len(items), 2, nr, cols), f32)
+                    val[:, 0, :, 0::2], val[:, 1, :, 0::2] = raw[..., 0], raw[..., 1]
+                    val[:, 0, :, 1::2], val[:, 1, :, 1::2] = raw[..., 2], raw[..., 3]
+                else:
+                    val = flat[rows[..., None] + (clo + np.arange(cols)) * sw][:, None]
+                term = val * s_wy[:nr, j][:, None]
+                v[:, :, :nr, :cols] = term if j == 0 else v[:, :, :nr, :cols] + term
+            v = v.reshape(len(items) * chans, th, bw)
+            acc = None
+            for i in range(tx):
+                term = v[:, :, s_cx[:, i]] * s_wx[:, i]
+                acc = term if acc is None else acc + term
+            _x1_stores(acc * sc, out, np.arange(NC), y0, x0, nr, nc, dw, stores)
+    return out, pl, stores
+
+
+def _x1_bit_equal(got, ref):
+    nan = np.isnan(ref)
+    return got.shape == ref.shape and (np.isnan(got) == nan).all() and \
+        (np.where(nan, 0, got).view(np.int32) == np.where(nan, 0, ref).view(np.int32)).all()
+
+
+def _x1_source(n, h, w, seed, layout="planar"):
+    """(n, 2, h, w) f32 up to 6 px from default_rng(seed), NaN and +-inf at
+    a few places, pixel (0, 0) among them (where an area table's pads
+    point): planar, the (B, H, W, 2) layout read in place ("pairs"), a
+    view cut 1 column into a frame 2 wider ("offset": rows and planes not
+    16-byte aligned), or of its first w columns ("narrow": a row's last
+    16-byte load would reach past the width)."""
+    x = ((np.random.default_rng(seed).random((n, 2, h, w + 2)) - 0.5) * 12).astype(f32)
+    x[0, 0, 0, 0] = x[0, 0, 0, 1] = np.nan
+    x[-1, -1, 0, 1] = np.inf
+    x[0, -1, h // 2, w // 3] = -np.inf
+    t = torch.as_tensor(x)
+    if layout == "offset":
+        return t[..., 1:w + 1]
+    if layout == "narrow":
+        return t[..., :w]
+    t = t[..., 1:w + 1].contiguous()
+    return t.movedim(1, -1).contiguous().movedim(-1, 1) if layout == "pairs" else t
+
+
+_CPU = torch.device("cpu")
+
+X1_BILINEAR_CASES = [
+    # (n, h, w, dh, dw, scale, layout, path)
+    (1, 135, 240, 270, 480, 2.0, "planar", "band"),       # the 1080p pyramid's x2 steps
+    (1, 270, 480, 540, 960, 2.0, "planar", "band"),
+    (1, 540, 960, 1080, 1920, 2.0, "planar", "band"),
+    (3, 36, 64, 72, 129, 2.0, "planar", "generic"),       # the 72x129 chunk: tiles 2.2x
+    (2, 37, 64, 73, 127, 2.0, "planar", "band"),          # dw % 4 == 3, odd rows
+    (2, 37, 62, 73, 123, 2.0, "offset", "band"),          # rows not 16-byte aligned
+    (2, 37, 62, 73, 124, 2.0, "pairs", "band"),           # strided columns: element loads
+    (2, 37, 62, 73, 124, 2.0, "narrow", "band"),          # the last load of a row cut
+    (2, 48, 53, 48, 106, 4.0, "planar", "band"),          # a row table of t = 0
+    (1, 120, 200, 60, 100, 1.0, "planar", "band"),        # /2: 8-row tiles
+    (1, 1080, 1920, 68, 120, 1.0, "planar", "generic"),   # the levels=5 resizes after K6
+    (1, 1080, 1920, 34, 60, 1.0, "planar", "generic"),
+    (1, 400, 640, 100, 160, 1.0, "planar", "generic"),    # /4: the band past SMEM
+    (1, 64, 64, 8, 8, 1.0, "planar", "generic"),          # /8
+]
+
+
+@pytest.mark.parametrize("n,h,w,dh,dw,scale,layout,path", X1_BILINEAR_CASES)
+def test_x1_bilinear_tiles_equal_plain(n, h, w, dh, dw, scale, layout, path):
+    """X1's tiles on the bilinear resize with its scale: equal to
+    `resize_bilinear_f32(x) * scale` to the bit, NaN and +-inf included;
+    every output stored once, 16-byte stores wherever dw % 4 == 0."""
+    x = _x1_source(n, h, w, h * w, layout)
+    ytab = resample._table("bilinear", h, dh, _CPU)
+    xtab = resample._table("bilinear", w, dw, _CPU)
+    got, pl, stores = emulate_x1(x, ytab, xtab, False, scale)
+    assert pl.path == path
+    ref = (resize.resize_bilinear_f32(x, dw, dh) * scale).reshape(-1, dh, dw).numpy()
+    assert _x1_bit_equal(got, ref)
+    if path == "band":
+        assert pl.load == (4 if layout == "narrow" or layout == "planar" and w % 4 == 0
+                           else 1)
+        assert (stores["scalar"] == 0) == (dw % 4 == 0)
+
+
+X1_AREA_CASES = [
+    # (n, h, w, dh, dw, layout, launches' paths)
+    (1, 1080, 1920, 135, 240, "pairs", ("columns",)),     # the seed at 1080p, read strided
+    (2, 72, 129, 36, 64, "pairs", ("generic",)),          # the 72x129 seed: tiles 2.2x
+    (2, 36, 1000, 9, 125, "planar", ("columns",)),        # 16-byte loads
+    (2, 36, 1000, 9, 125, "offset", ("columns",)),        # element loads
+    (2, 36, 998, 9, 125, "narrow", ("columns",)),         # the last load of a row cut
+    (2, 24, 480, 6, 120, "pairs", ("columns",)),          # 16-byte pair loads
+    (2, 30, 360, 7, 101, "pairs", ("columns",)),          # pads at index 0
+    (2, 60, 512, 120, 128, "pairs", ("band", "band")),    # an axis grows: two launches
+    (2, 512, 60, 128, 120, "pairs", ("columns", "columns")),
+    (2, 64, 128, 64, 128, "pairs", ("columns",)),         # the same size: x * scale
+    (2, 40, 1000, 5, 13, "pairs", ("generic",)),          # 78 column taps: over SMEM
+]
+
+
+@pytest.mark.parametrize("n,h,w,dh,dw,layout,paths", X1_AREA_CASES)
+def test_x1_area_tiles_equal_plain(n, h, w, dh, dw, layout, paths):
+    """X1's launches of `area_plan` with the scale on the last: equal to
+    `resize_area_f32(x) * scale` to the bit, NaN and +-inf in x (pixel
+    (0, 0) among them, where the pads point)."""
+    x = _x1_source(n, h, w, h + w, layout)
+    plan = resample.area_plan(h, w, dh, dw)
+    assert len(plan) == len(paths)
+    cur, scale = x, float(f32(0.5 ** 3))
+    for k, (vert, horiz, vertical_first) in enumerate(plan):
+        got, pl, _ = emulate_x1(cur, resample._table(*vert, _CPU),
+                                resample._table(*horiz, _CPU), vertical_first,
+                                scale if k == len(plan) - 1 else 1.0)
+        assert pl.path == paths[k]
+        cur = torch.as_tensor(got).reshape(x.shape[:-2] + got.shape[-2:])
+    ref = (resize.resize_area_f32(x, dw, dh) * scale).reshape(-1, dh, dw).numpy()
+    assert _x1_bit_equal(cur.reshape(-1, dh, dw).numpy(), ref)
+
+
+@pytest.mark.parametrize("sh,dh,w,dw,parts", [(135, 270, 240, 480, 3), (541, 1079, 64, 128, 4)])
+def test_x1_row_block_tiles_equal_plain(sh, dh, w, dw, parts):
+    """The halo path's per-block resize through X1's tiles: each output row
+    block from the source rows it reads, with the frame's vertical table
+    shifted to them, equals the plain `bilinear_rows` on the block."""
+    x = _x1_source(2, sh, w, sh)
+    s0, s1, _ = resize._coeffs_f32(sh, dh)
+    sy0, sy1, ty = resize.coeff_tensors(sh, dh, _CPU)
+    for block in np.array_split(np.arange(dh), parts):
+        a, b = int(block[0]), int(block[-1]) + 1
+        lo, hi = int(s0[a]), int(s1[b - 1]) + 1
+        src = x[..., lo:hi, :]
+        got, pl, _ = emulate_x1(src, resample._row_block_table(sh, dh, a, b, lo, _CPU),
+                                resample._table("bilinear", w, dw, _CPU), False, 2.0)
+        assert pl.path == "band"
+        ref = resize.bilinear_rows(src, dw, sy0[a:b] - lo, sy1[a:b] - lo, ty[a:b]) * 2.0
+        assert _x1_bit_equal(got, ref.reshape(-1, b - a, dw).numpy())
+
+
+def test_x1_plans_of_chip_smoke_cases():
+    """The host's plan for each of chip_smoke.py's kernel_X1 cases: the
+    path, the tile, the staged band and the shared memory.  The x2
+    upsamples stage a band of 10 rows x 72 columns for a 16 x 128 tile;
+    the seed's vertical sums are 4 rows x 1028 columns x 2 channels, a
+    word of padding every 32; the levels=5 resizes (/16 and /32) and the
+    72x129 chunk's upsample, whose tiles would cover 2.2 times its
+    planes, take the generic kernel; the 8K halo blocks' upsample as
+    the x2 steps, their /2 level resize 8-row tiles."""
+    def bilinear(n, h, w, dh, dw):
+        x = torch.empty((n, 2, h, w))
+        return resample.plan(x, resample._table("bilinear", h, dh, _CPU),
+                             resample._table("bilinear", w, dw, _CPU), False)
+
+    band = dict(path="band", load=4, tile_h=16, band_h=10)
+    for h, w in ((135, 240), (270, 480), (540, 960)):
+        assert bilinear(16, h, w, 2 * h, 2 * w) == resample.Plan(**band, band_w=72, smem=8064)
+    assert bilinear(128, 36, 64, 72, 129).path == "generic"     # tiles 2.2x the plane
+    blurred = torch.empty((32, 1080, 1920))
+    for dh, dw in ((68, 120), (34, 60)):
+        assert resample.plan(blurred, resample._table("bilinear", 1080, dh, _CPU),
+                             resample._table("bilinear", 1920, dw, _CPU),
+                             False).path == "generic"
+    seed = torch.empty((16, 1080, 1920, 2)).movedim(-1, 1)
+    assert resample.plan(seed, resample._table("area", 1080, 135, _CPU),
+                         resample._table("area", 1920, 240, _CPU), True) == resample.Plan(
+        "columns", 2, 4, 0, 1028, 42368)
+    s0 = resize._coeffs_f32(2160, 4320)[0]
+    lo = int(s0[2160])
+    block = torch.empty((1, 2, 2160 - lo, 3840))
+    assert resample.plan(block, resample._row_block_table(2160, 4320, 2160, 4320, lo, _CPU),
+                         resample._table("bilinear", 3840, 7680, _CPU),
+                         False) == resample.Plan(**band, band_w=72, smem=8064)
+    s0 = resize._coeffs_f32(4320, 2160)[0]
+    lo = int(s0[1080])
+    block = torch.empty((2, 4320 - lo, 7680))
+    assert resample.plan(block, resample._row_block_table(4320, 2160, 1080, 2160, lo, _CPU),
+                         resample._table("bilinear", 7680, 3840, _CPU), False) == \
+        resample.Plan("band", 4, 8, 16, 260, 35456)

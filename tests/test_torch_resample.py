@@ -168,7 +168,8 @@ def test_table_loop_on_row_blocks_is_bilinear_rows(sh, dh, w, dw, parts):
                                          (2, 1), (37, 37), (1080, 68), (7, 3)])
 def test_bilinear_table_is_jax_s_coeffs(s_len, d_len):
     s0, s1, t = jresize._coeffs_f32(s_len, d_len)
-    idx, wt, lo, hi = _tables("bilinear", s_len, d_len)
+    tab = _tables("bilinear", s_len, d_len)
+    idx, wt, lo, hi = tab.index, tab.weight, tab.lo, tab.hi
     assert idx.dtype == torch.int32 and wt.dtype == torch.float32
     assert (lo, hi) == (int(s0.min()), int(s1.max()) + 1)
     np.testing.assert_array_equal(idx.numpy(), np.stack([s0, s1], 1))
@@ -180,7 +181,8 @@ def test_bilinear_table_is_jax_s_coeffs(s_len, d_len):
 def test_area_table_is_jax_s_area_weights(s_len, d_len):
     """Scattered back into a dense (d_len, s_len) matrix, the table (its
     zero-weight pads at index 0 included) is JAX's `_area_weights`."""
-    idx, wt, lo, hi = _tables("area", s_len, d_len)
+    tab = _tables("area", s_len, d_len)
+    idx, wt, lo, hi = tab.index, tab.weight, tab.lo, tab.hi
     assert (lo, hi) == (0, s_len)
     dense = np.zeros((d_len, s_len), np.float32)
     for d in range(d_len):
