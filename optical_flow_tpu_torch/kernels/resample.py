@@ -184,7 +184,11 @@ def _plan(vertical_first: bool, load: int, ytab: tuple, xtab: tuple) -> Plan:
         for tile_h in (16, 8):
             band_h = yspans[TILE_LENGTHS.index(tile_h)]
             smem = 2 * 4 * band_h * band_w + 8 * tile_h * ty + tables
-            if smem <= SMEM and _tiled(dh, dw, tile_h):
+            # staging pays where the tile's taps read its band more than
+            # once over (not at a /2 downsample, whose taps meet each
+            # source pixel once)
+            reused = band_h * band_w < min(tile_h, dh) * min(TILE_W, dw) * ty * tx
+            if smem <= SMEM and reused and _tiled(dh, dw, tile_h):
                 return Plan("band", load, tile_h, band_h, band_w, smem)
     else:
         channels = 2 if load == 2 else 1
@@ -203,8 +207,9 @@ def plan(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool) -> Pla
     a CPU tensor): the band kernel for the horizontal pass first and the
     columns kernel for the vertical pass first where the tile's band fits
     SMEM (a bilinear downsample past about 2x does not: its taps skip
-    rows and columns) and the tiles cover the output planes without much
-    waste (`_tiled`), else the generic kernel.  Loads move 16 bytes where
+    rows and columns), the band kernel's taps read its band more than
+    once over, and the tiles cover the output planes without much waste
+    (`_tiled`); else the generic kernel.  Loads move 16 bytes where
     x's planes and rows are 16-byte aligned with unit column stride, or
     where x is the (B, H, W, 2) layout (C == 2, channel stride 1, column
     stride 2: the seed); else one float."""

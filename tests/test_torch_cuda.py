@@ -1285,7 +1285,8 @@ RESAMPLE_PLAN_CASES = [
     ("x2_offset_view", "offset", (2, 2, 37, 62), "bilinear", 73, 123, ("band", 1)),
     ("x2_pairs", "pairs", (2, 2, 37, 62), "bilinear", 73, 124, ("band", 1)),
     ("x2_narrow_view", "narrow", (2, 2, 37, 62), "bilinear", 73, 124, ("band", 4)),
-    ("half_tile8", "planar", (2, 2, 400, 1024), "bilinear", 200, 512, ("band", 4)),
+    ("x0.55_tile8", "planar", (2, 2, 400, 800), "bilinear", 220, 440, ("band", 4)),
+    ("half_read_once", "planar", (2, 2, 400, 1024), "bilinear", 200, 512, ("generic", 1)),
     ("x2_chunk_72x129", "planar", (3, 2, 36, 64), "bilinear", 72, 129, ("generic", 1)),
     ("eighth", "planar", (2, 2, 64, 64), "bilinear", 8, 8, ("generic", 1)),
     ("quarter_past_smem", "planar", (1, 2, 400, 640), "bilinear", 100, 160, ("generic", 1)),
@@ -1296,6 +1297,7 @@ RESAMPLE_PLAN_CASES = [
     ("area_narrow_view", "narrow", (2, 2, 36, 998), "area", 9, 125, ("columns", 4)),
     ("area_offset_view", "offset", (2, 2, 36, 1000), "area", 9, 125, ("columns", 1)),
     ("area_grow_rows", "pairs", (2, 2, 60, 512), "area", 120, 128, ("band", 1)),
+    ("area_grow_rows_5_taps", "pairs", (2, 2, 60, 500), "area", 120, 128, ("band", 1)),
     ("area_grow_cols", "pairs", (2, 2, 512, 60), "area", 128, 120, ("columns", 2)),
     ("area_seed_72x129", "pairs", (2, 2, 72, 129), "area", 36, 64, ("generic", 1)),
     ("area_78_taps", "pairs", (2, 2, 40, 1000), "area", 5, 13, ("generic", 1)),

@@ -1004,7 +1004,8 @@ X1_BILINEAR_CASES = [
     (2, 37, 62, 73, 124, 2.0, "pairs", "band"),           # strided columns: element loads
     (2, 37, 62, 73, 124, 2.0, "narrow", "band"),          # the last load of a row cut
     (2, 48, 53, 48, 106, 4.0, "planar", "band"),          # a row table of t = 0
-    (1, 120, 200, 60, 100, 1.0, "planar", "band"),        # /2: 8-row tiles
+    (1, 200, 400, 110, 220, 1.0, "planar", "band"),       # /1.8: 8-row tiles
+    (1, 120, 200, 60, 100, 1.0, "planar", "generic"),     # /2: no source pixel read twice
     (1, 1080, 1920, 68, 120, 1.0, "planar", "generic"),   # the levels=5 resizes after K6
     (1, 1080, 1920, 34, 60, 1.0, "planar", "generic"),
     (1, 400, 640, 100, 160, 1.0, "planar", "generic"),    # /4: the band past SMEM
@@ -1039,7 +1040,8 @@ X1_AREA_CASES = [
     (2, 36, 998, 9, 125, "narrow", ("columns",)),         # the last load of a row cut
     (2, 24, 480, 6, 120, "pairs", ("columns",)),          # 16-byte pair loads
     (2, 30, 360, 7, 101, "pairs", ("columns",)),          # pads at index 0
-    (2, 60, 512, 120, 128, "pairs", ("band", "band")),    # an axis grows: two launches
+    (2, 60, 512, 120, 128, "pairs", ("band", "generic")),  # an axis grows: two launches
+    (2, 60, 500, 120, 128, "pairs", ("band", "band")),    # 5 column taps, 1 row tap
     (2, 512, 60, 128, 120, "pairs", ("columns", "columns")),
     (2, 64, 128, 64, 128, "pairs", ("columns",)),         # the same size: x * scale
     (2, 40, 1000, 5, 13, "pairs", ("generic",)),          # 78 column taps: over SMEM
@@ -1091,8 +1093,9 @@ def test_x1_plans_of_chip_smoke_cases():
     the seed's vertical sums are 4 rows x 1028 columns x 2 channels, a
     word of padding every 32; the levels=5 resizes (/16 and /32) and the
     72x129 chunk's upsample, whose tiles would cover 2.2 times its
-    planes, take the generic kernel; the 8K halo blocks' upsample as
-    the x2 steps, their /2 level resize 8-row tiles."""
+    planes, take the generic kernel, as does the 8K halo blocks' /2
+    level resize, whose taps read each source pixel once; their upsample
+    is planned as the x2 steps."""
     def bilinear(n, h, w, dh, dw):
         x = torch.empty((n, 2, h, w))
         return resample.plan(x, resample._table("bilinear", h, dh, _CPU),
@@ -1121,5 +1124,4 @@ def test_x1_plans_of_chip_smoke_cases():
     lo = int(s0[1080])
     block = torch.empty((2, 4320 - lo, 7680))
     assert resample.plan(block, resample._row_block_table(4320, 2160, 1080, 2160, lo, _CPU),
-                         resample._table("bilinear", 7680, 3840, _CPU), False) == \
-        resample.Plan("band", 4, 8, 16, 260, 35456)
+                         resample._table("bilinear", 7680, 3840, _CPU), False).path == "generic"
