@@ -1043,9 +1043,9 @@ def kernel_k6_phase(both, stats) -> None:
 
 def x1_path(x, ytab, xtab, vertical_first: bool) -> dict | None:
     """The launch plan X1's host picks for x and the tables
-    (`kernels/resample.py:plan`): path, tile, staged band, shared memory
-    and planes a block; None for a package whose X1 has no plan (one
-    generic kernel)."""
+    (`kernels/resample.py:plan`): path, load width, tile, staged band and
+    shared memory; None for a package whose X1 has no plan (one generic
+    kernel)."""
     from optical_flow_tpu_torch.kernels import resample
     plan = getattr(resample, "plan", None)
     return None if plan is None else plan(x, ytab, xtab, vertical_first)._asdict()
@@ -1087,7 +1087,6 @@ def kernel_x1_phase(dev, stats) -> None:
                                             mode="bilinear", align_corners=False) * scale))
         paths[label] = x1_path(x, resample._table("bilinear", x.shape[-2], dh, dev),
                                resample._table("bilinear", x.shape[-1], dw, dev), False)
-        return x
 
     levels = build_plan(1080, 1920, FarnebackConfig()).levels
     for coarse, fine in zip(levels, levels[1:]):

@@ -354,7 +354,8 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
           float4 x[LOADS];
 #pragma unroll
           for (int u = 0; u < LOADS; ++u)
-            if (j0 + u < ty) x[u] = __ldg(reinterpret_cast<const float4*>(g + rows[j0 + u] * sh));
+            if (j0 + u < ty)
+              x[u] = __ldg(reinterpret_cast<const float4*>(g + rows[j0 + u] * sh));
 #pragma unroll
           for (int u = 0; u < LOADS; ++u) {
             if (j0 + u >= ty) break;
@@ -546,7 +547,8 @@ long long resident_blocks(const void* kernel, int smem) {
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  const long long blocks = static_cast<long long>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  const long long blocks =
+      static_cast<long long>(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   known.push_back({kernel, device, smem, blocks});
   return blocks;
 }

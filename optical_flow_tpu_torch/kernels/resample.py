@@ -20,17 +20,18 @@ plain resizes).  Bound on the card by bytes: the source read once, the
 output written once.
 
 The host plans each launch (`plan`) from the tables' per-tile spans,
-which each cached `Table` carries, and from x's strides: the band
-kernel (the bilinear resizes: a tile's tables staged in shared memory
-once, its source band once a plane with the next plane's in flight, 4
-outputs and one 16-byte store a thread), the columns kernel (INTER_AREA: source
-rows streamed with 16-byte loads into the tile's vertical sums, the
-seed's (B, H, W, 2) layout two pixels of both channels a load), or the
-generic kernel (an output a thread) where the band would not fit or the
-tiles would mostly cover nothing (the levels=5 resizes, the 72x129
-frames).  `tests/test_torch_kernel_tiles.py:emulate_x1` repeats each
-plan in numpy.  No path is a fallback: the plan is fixed by the shapes
-before the launch, and a failing launch raises.
+which each cached `Table` carries, and from x's strides: the band kernel
+(the bilinear resizes: a tile's tables staged in shared memory once, its
+source band once a plane with the next plane's in flight, 4 outputs and
+one 16-byte store a thread), the columns kernel (INTER_AREA: source rows
+streamed with 16-byte loads into the tile's vertical sums, the seed's
+(B, H, W, 2) layout two pixels of both channels a load), or the generic
+kernel (an output a thread) where the band would not fit, no source
+pixel is read twice, or the tiles would mostly cover nothing (the
+levels=5 resizes, the 72x129 frames).
+`tests/test_torch_kernel_tiles.py:emulate_x1` repeats each plan in
+numpy.  No path is a fallback: the plan is fixed by the shapes before
+the launch, and a failing launch raises.
 
 `resize_bilinear`, `resize_area` and `bilinear_rows` are the entries:
 each runs the plain version on a CPU tensor and X1 on a CUDA tensor.

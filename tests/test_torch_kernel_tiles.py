@@ -999,6 +999,7 @@ X1_BILINEAR_CASES = [
     (1, 270, 480, 540, 960, 2.0, "planar", "band"),
     (1, 540, 960, 1080, 1920, 2.0, "planar", "band"),
     (3, 36, 64, 72, 129, 2.0, "planar", "generic"),       # the 72x129 chunk: tiles 2.2x
+    (2, 37, 65, 73, 129, 2.0, "planar", "generic"),       # 65 -> 129 columns
     (2, 37, 64, 73, 127, 2.0, "planar", "band"),          # dw % 4 == 3, odd rows
     (2, 37, 62, 73, 123, 2.0, "offset", "band"),          # rows not 16-byte aligned
     (2, 37, 62, 73, 124, 2.0, "pairs", "band"),           # strided columns: element loads
