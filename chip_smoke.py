@@ -1041,14 +1041,12 @@ def kernel_k6_phase(both, stats) -> None:
     run_cases("K6", cases, stats, ptxas=ptxas_report("gauss"), occupancy=occupancy)
 
 
-def x1_path(x, ytab, xtab, vertical_first: bool) -> dict | None:
+def x1_path(x, ytab, xtab, vertical_first: bool) -> dict:
     """The launch plan X1's host picks for x and the tables
     (`kernels/resample.py:plan`): path, load width, tile, staged band and
-    shared memory; None for a package whose X1 has no plan (one generic
-    kernel)."""
+    shared memory."""
     from optical_flow_tpu_torch.kernels import resample
-    plan = getattr(resample, "plan", None)
-    return None if plan is None else plan(x, ytab, xtab, vertical_first)._asdict()
+    return resample.plan(x, ytab, xtab, vertical_first)._asdict()
 
 
 def kernel_x1_phase(dev, stats) -> None:
@@ -1063,7 +1061,7 @@ def kernel_x1_phase(dev, stats) -> None:
     times the scale.  Each case is timed with events and by its device
     time (`device_ms`), and names the launch plan its host picked
     (`paths`); `host_us` is the host's time of one launch at the L2 and
-    72x129 upsamples."""
+    72x129 upsamples, and of `resample.plan` alone at L2 (`L2_plan`)."""
     import torch
     import torch.nn.functional as F
     from optical_flow_tpu_torch.kernels import resample
@@ -1094,6 +1092,9 @@ def kernel_x1_phase(dev, stats) -> None:
         bilinear(f"L{fine.k}", flow, fine.height, fine.width, 2.0)
         if fine.k == 2:
             host["L2"] = host_us(lambda: resize_bilinear(flow, fine.width, fine.height, 2.0))
+            ytab = resample._table("bilinear", coarse.height, fine.height, dev)
+            xtab = resample._table("bilinear", coarse.width, fine.width, dev)
+            host["L2_plan"] = host_us(lambda: resample.plan(flow, ytab, xtab, False))
     seed = torch.as_tensor(seed_flow(BATCH, 1080, 1920)).to(dev).movedim(-1, 1)
     l3 = levels[0]
     plan = area_plan(1080, 1920, l3.height, l3.width)

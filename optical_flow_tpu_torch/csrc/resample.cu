@@ -23,7 +23,8 @@
 // (kernels/resample.py:plan) picks one of three kernels by the tables'
 // spans, before the launch:
 //
-// - band (the horizontal pass first: the bilinear resizes).  A block
+// - band (the horizontal pass first, both tables bilinear: the
+//   upsamples, the halo's row blocks, the milder downsamples).  A block
 //   makes an output tile of TH = 8 or 16 rows x TILE_W columns for the
 //   planes it is given.  The tile's table entries go to shared memory
 //   once, with source indices made relative to the band they reach, and
@@ -33,14 +34,16 @@
 //   aligned), the next plane's band in flight while the current one is
 //   read.  A thread makes 4 consecutive outputs of a row and writes them
 //   with one 16-byte store where the row allows.
-// - columns (the vertical pass first: INTER_AREA).  The vertical pass
-//   needs no gather along a row, so its source rows stream through
-//   registers with 16-byte loads (the seed's (B, H, W, 2) layout as two
-//   pixels' (x, y) a load, both channels at once) into the vertical sums
+// - columns (the vertical pass first: INTER_AREA on the seed's
+//   (B, H, W, 2) layout).  The vertical pass needs no gather along a
+//   row, so its source rows stream through registers with 16-byte loads
+//   (two pixels' (x, y) a load, both channels at once) into the vertical sums
 //   of the tile's source columns, kept in shared memory split into
 //   planes; then each thread makes 4 consecutive outputs of a row from
 //   them, as above.
 // - generic: any tables, an output a thread, the taps read through L1;
+//   for the tables and layouts the others do not take (a unit table, a
+//   growing axis's pair of launches, INTER_AREA on planar rows), and
 //   where the band would not fit the shared memory the host allows a
 //   block (a bilinear downsample past about 2x, whose taps skip rows and
 //   columns: the levels=5 resizes), or where the tiles would mostly lie
@@ -69,6 +72,10 @@ constexpr int TY = 8;
 // Threads a launch needs before a thread takes PLANES planes, not one.
 constexpr long long MANY_THREADS = 1LL << 19;
 constexpr int PLANES = 4;
+// The dynamic shared memory a band or columns block may take: the 48 KB a
+// block has without an opt-in, less the 16 bytes those kernels declare
+// statically (their s_lo).
+constexpr int SMEM = 48 * 1024 - 16;
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -142,32 +149,31 @@ __device__ __forceinline__ void store4(float* __restrict__ plane, int oy, int ox
 
 // ---------------------------------------------------------------- band
 
-// Horizontal pass first.  kLoad: 4 copies the band 16 bytes at a time
-// (unit column stride, 16-byte aligned rows), 1 an element at a time
-// through any strides.  kTaps: 2 for the bilinear tables (unrolled, each
-// thread's entries in registers), 0 for any.  kRows: the tile's rows over
-// 8 (a thread's rows).  Dynamic shared memory: the band twice (band_h x
-// band_w floats each, from source row rlo and column clo), then the
-// tile's column table (tap-major) and row table.
-template <int kLoad, int kTaps, int kRows>
+// Horizontal pass first, both tables bilinear (2 taps: unrolled, each
+// thread's entries in registers).  kLoad: 4 copies the band 16 bytes at a
+// time (unit column stride, 16-byte aligned rows), 1 an element at a
+// time through any strides.  kRows: the tile's rows over 8 (a thread's
+// rows).  Dynamic shared memory: the band twice (band_h x band_w floats
+// each, from source row rlo and column clo), then the tile's column table
+// (tap-major) and row table.
+template <int kLoad, int kRows>
 __global__ void __launch_bounds__(THREADS)
 resample_band_kernel(const float* __restrict__ src, long long sn, long long sc,
                      long long sh, long long sw, int C, int NC, int H, int W,
-                     const int* __restrict__ iy, const float* __restrict__ wy, int ty,
-                     const int* __restrict__ ix, const float* __restrict__ wx, int tx,
+                     const int* __restrict__ iy, const float* __restrict__ wy,
+                     const int* __restrict__ ix, const float* __restrict__ wx,
                      float scale, float* __restrict__ out, int dh, int dw, int band_h,
                      int band_w) {
   constexpr int TH = 8 * kRows;
+  constexpr int T = 2;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo[2];
-  const int nty = kTaps > 0 ? kTaps : ty;
-  const int ntx = kTaps > 0 ? kTaps : tx;
   const int band = band_h * band_w;
   float* bufs = smem;
   int* s_cx = reinterpret_cast<int*>(smem + 2 * band);      // tap-major
-  float* s_wx = reinterpret_cast<float*>(s_cx + TILE_W * ntx);
-  int* s_ry = reinterpret_cast<int*>(s_wx + TILE_W * ntx);
-  float* s_wy = reinterpret_cast<float*>(s_ry + TH * nty);
+  float* s_wx = reinterpret_cast<float*>(s_cx + TILE_W * T);
+  int* s_ry = reinterpret_cast<int*>(s_wx + TILE_W * T);
+  float* s_wy = reinterpret_cast<float*>(s_ry + TH * T);
 
   const int tid = threadIdx.x;
   const int lx = tid % GROUPS;   // the thread's 4 columns: 4 lx .. 4 lx + 3
@@ -178,8 +184,8 @@ resample_band_kernel(const float* __restrict__ src, long long sn, long long sc,
   const int ncols = min(TILE_W, dw - ox0);
   if (tid < 2) s_lo[tid] = INT_MAX;
   __syncthreads();
-  stage_table(iy, wy, oy0, nrows, TH, nty, false, s_ry, s_wy, &s_lo[0]);
-  stage_table(ix, wx, ox0, ncols, TILE_W, ntx, true, s_cx, s_wx, &s_lo[1]);
+  stage_table(iy, wy, oy0, nrows, TH, T, false, s_ry, s_wy, &s_lo[0]);
+  stage_table(ix, wx, ox0, ncols, TILE_W, T, true, s_cx, s_wx, &s_lo[1]);
   __syncthreads();  // the tables and the band's origin (rlo, clo)
   const int rlo = s_lo[0];
   const int clo = kLoad == 4 ? (s_lo[1] & ~3) : s_lo[1];
@@ -215,26 +221,24 @@ resample_band_kernel(const float* __restrict__ src, long long sn, long long sc,
   const int dq = gridDim.z;
   stage(blockIdx.z, bufs);
 
-  // a bilinear thread's own entries, made relative to the band, the same
-  // for every plane
-  int ry[kRows][2], cx[4][2];
-  float fy[kRows][2], fx[4][2];
-  if constexpr (kTaps == 2) {
+  // the thread's own entries, made relative to the band, the same for
+  // every plane
+  int ry[kRows][T], cx[4][T];
+  float fy[kRows][T], fx[4][T];
 #pragma unroll
-    for (int g = 0; g < kRows; ++g)
+  for (int g = 0; g < kRows; ++g)
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        ry[g][k] = (s_ry[(ly + 8 * g) * 2 + k] - rlo) * band_w;
-        fy[g][k] = s_wy[(ly + 8 * g) * 2 + k];
-      }
+    for (int k = 0; k < T; ++k) {
+      ry[g][k] = (s_ry[(ly + 8 * g) * T + k] - rlo) * band_w;
+      fy[g][k] = s_wy[(ly + 8 * g) * T + k];
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+  for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        cx[e][k] = s_cx[k * TILE_W + 4 * lx + e] - clo;
-        fx[e][k] = s_wx[k * TILE_W + 4 * lx + e];
-      }
-  }
+    for (int k = 0; k < T; ++k) {
+      cx[e][k] = s_cx[k * TILE_W + 4 * lx + e] - clo;
+      fx[e][k] = s_wx[k * TILE_W + 4 * lx + e];
+    }
 
   for (int q = blockIdx.z, i = 0; q < NC; q += dq, ++i) {
     const float* buf = bufs + (i & 1) * band;
@@ -252,34 +256,13 @@ resample_band_kernel(const float* __restrict__ src, long long sn, long long sc,
       const int r = ly + 8 * g;
       if (r >= nrows || ox >= dw) continue;
       float o[4];
-      if constexpr (kTaps == 2) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* b0 = buf + ry[g][0];
-          const float* b1 = buf + ry[g][1];
-          const float h0 = b0[cx[e][0]] * fx[e][0] + b0[cx[e][1]] * fx[e][1];
-          const float h1 = b1[cx[e][0]] * fx[e][0] + b1[cx[e][1]] * fx[e][1];
-          o[e] = (h0 * fy[g][0] + h1 * fy[g][1]) * scale;
-        }
-      } else {
-        // the 4 outputs' sums side by side, each in its own tap order
-        float acc[4];
-        for (int k = 0; k < nty; ++k) {
-          const float* b = buf + (s_ry[r * nty + k] - rlo) * band_w - clo;
-          float v[4];
-          for (int m = 0; m < ntx; ++m) {
-            const int4 c = *reinterpret_cast<const int4*>(s_cx + m * TILE_W + 4 * lx);
-            const float4 w = *reinterpret_cast<const float4*>(s_wx + m * TILE_W + 4 * lx);
-            const float t[4] = {b[c.x] * w.x, b[c.y] * w.y, b[c.z] * w.z, b[c.w] * w.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) v[e] = m == 0 ? t[e] : v[e] + t[e];
-          }
-          const float wk = s_wy[r * nty + k];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[e] = k == 0 ? v[e] * wk : acc[e] + v[e] * wk;
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = acc[e] * scale;
+      for (int e = 0; e < 4; ++e) {
+        const float* b0 = buf + ry[g][0];
+        const float* b1 = buf + ry[g][1];
+        const float h0 = b0[cx[e][0]] * fx[e][0] + b0[cx[e][1]] * fx[e][1];
+        const float h1 = b1[cx[e][0]] * fx[e][0] + b1[cx[e][1]] * fx[e][1];
+        o[e] = (h0 * fy[g][0] + h1 * fy[g][1]) * scale;
       }
       store4(plane, oy0 + r, ox, dh, dw, o);
     }
@@ -289,11 +272,10 @@ resample_band_kernel(const float* __restrict__ src, long long sn, long long sc,
 
 // ------------------------------------------------------------- columns
 
-// Vertical pass first.  kLoad: 4 loads 4 columns of a plane a time
-// (unit column stride, 16-byte aligned rows); 2 loads 2 pixels of both
-// channels of a (B, H, W, 2) layout (C == 2, channel stride 1, column
-// stride 2), an item being a pair of planes; 1 an element of a plane
-// through any strides.  Dynamic shared memory: the tile's column table
+// Vertical pass first.  kLoad: 2 loads 2 pixels of both channels of a
+// (B, H, W, 2) layout (C == 2, channel stride 1, column stride 2: the
+// seed), an item being a pair of planes; 1 an element of a plane through
+// any strides.  Dynamic shared memory: the tile's column table
 // (tap-major), the vertical sums (tile_h rows x band_w columns a
 // channel, a word of padding every 32), then the row table.
 template <int kLoad>
@@ -304,8 +286,7 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
                         const int* __restrict__ ix, const float* __restrict__ wx, int tx,
                         float scale, float* __restrict__ out, int dh, int dw, int tile_h,
                         int band_w) {
-  constexpr int NCH = kLoad == 2 ? 2 : 1;        // planes an item
-  constexpr int STEP = kLoad == 2 ? 2 : kLoad;   // source columns a load
+  constexpr int NCH = kLoad;                     // planes an item, source columns a load
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo;
   const int pitch = band_w + (band_w >> 5);     // a row of sums, skewed
@@ -326,10 +307,10 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
   stage_table(iy, wy, oy0, nrows, tile_h, ty, false, s_ry, s_wy, nullptr);
   stage_table(ix, wx, ox0, ncols, TILE_W, tx, true, s_cx, s_wx, &s_lo);
   __syncthreads();  // the tables and the band's first column
-  const int clo = kLoad == 1 ? s_lo : s_lo & ~(STEP - 1);
+  const int clo = s_lo & ~(kLoad - 1);
 
   const int cols = min(band_w, W - clo);
-  const int per_row = (cols + STEP - 1) / STEP;
+  const int per_row = (cols + kLoad - 1) / kLoad;
   const int items = kLoad == 2 ? NC / 2 : NC;
   for (int q = blockIdx.z; q < items; q += gridDim.z) {
     const float* base = kLoad == 2 ? src + static_cast<long long>(q) * sn
@@ -337,7 +318,7 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
     // the vertical sums of the band's columns, each from its first row
     for (int k = tid; k < nrows * per_row; k += THREADS) {
       const int r = k / per_row;
-      const int c = STEP * (k - r * per_row);
+      const int c = kLoad * (k - r * per_row);
       const int* rows = s_ry + r * ty;
       const float* rw = s_wy + r * ty;
       float v[4];
@@ -346,10 +327,10 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
         v[0] = g[rows[0] * sh] * rw[0];
         for (int j = 1; j < ty; ++j) v[0] = v[0] + g[rows[j] * sh] * rw[j];
         s_v[r * pitch + skew(c)] = v[0];
-      } else if (kLoad == 2 || c + 4 <= cols) {
-        // kLoad 2: W is even, so both pixels lie in the row.  LOADS rows'
-        // loads are in flight before their terms are added in order.
-        const float* g = base + static_cast<long long>(clo + c) * (kLoad == 2 ? 2 : 1);
+      } else {
+        // W is even, so both pixels lie in the row.  LOADS rows' loads are
+        // in flight before their terms are added in order.
+        const float* g = base + static_cast<long long>(clo + c) * 2;
         for (int j0 = 0; j0 < ty; j0 += LOADS) {
           float4 x[LOADS];
 #pragma unroll
@@ -368,25 +349,12 @@ resample_columns_kernel(const float* __restrict__ src, long long sn, long long s
             }
           }
         }
-        if constexpr (kLoad == 2) {
-          // (x, y) of pixels c and c + 1 -> channel planes 0 and 1
-          float* d = s_v + r * pitch + skew(c);    // c is even: c + 1 is beside it
-          d[0] = v[0];
-          d[vplane] = v[1];
-          d[1] = v[2];
-          d[vplane + 1] = v[3];
-        } else {
-          float* d = s_v + r * pitch + skew(c);    // c % 4 == 0: c + 3 is in its 32
-#pragma unroll
-          for (int e = 0; e < 4; ++e) d[e] = v[e];
-        }
-      } else {
-        for (int e = 0; c + e < cols; ++e) {
-          const float* g = base + clo + c + e;
-          float s = g[rows[0] * sh] * rw[0];
-          for (int j = 1; j < ty; ++j) s = s + g[rows[j] * sh] * rw[j];
-          s_v[r * pitch + skew(c + e)] = s;
-        }
+        // (x, y) of pixels c and c + 1 -> channel planes 0 and 1
+        float* d = s_v + r * pitch + skew(c);      // c is even: c + 1 is beside it
+        d[0] = v[0];
+        d[vplane] = v[1];
+        d[1] = v[2];
+        d[vplane + 1] = v[3];
       }
     }
     __syncthreads();
@@ -580,17 +548,16 @@ unsigned plane_groups(Kernel kernel, int smem, dim3 grid, int items) {
   return static_cast<unsigned>(groups);
 }
 
-template <int kLoad, int kTaps>
+template <int kLoad>
 void launch_band(int tile_h, dim3 grid, int smem, cudaStream_t s, const float* src,
                  long long sn, long long sc, long long sh, long long sw, int C, int NC,
-                 int H, int W, const int* iy, const float* wy, int ty, const int* ix,
-                 const float* wx, int tx, float scale, float* out, int dh, int dw,
-                 int band_h, int band_w) {
-  auto kernel = tile_h == 16 ? resample_band_kernel<kLoad, kTaps, 2>
-                             : resample_band_kernel<kLoad, kTaps, 1>;
+                 int H, int W, const int* iy, const float* wy, const int* ix,
+                 const float* wx, float scale, float* out, int dh, int dw, int band_h,
+                 int band_w) {
+  auto kernel = tile_h == 16 ? resample_band_kernel<kLoad, 2> : resample_band_kernel<kLoad, 1>;
   grid.z = plane_groups(kernel, smem, grid, NC);
-  kernel<<<grid, THREADS, smem, s>>>(src, sn, sc, sh, sw, C, NC, H, W, iy, wy, ty, ix, wx,
-                                     tx, scale, out, dh, dw, band_h, band_w);
+  kernel<<<grid, THREADS, smem, s>>>(src, sn, sc, sh, sw, C, NC, H, W, iy, wy, ix, wx, scale,
+                                     out, dh, dw, band_h, band_w);
 }
 
 template <int kLoad>
@@ -600,7 +567,7 @@ void launch_columns(dim3 grid, int smem, cudaStream_t s, const float* src, long 
                     int tx, float scale, float* out, int dh, int dw, int tile_h,
                     int band_w) {
   auto kernel = resample_columns_kernel<kLoad>;
-  grid.z = plane_groups(kernel, smem, grid, kLoad == 2 ? NC / 2 : NC);
+  grid.z = plane_groups(kernel, smem, grid, NC / kLoad);
   kernel<<<grid, THREADS, smem, s>>>(src, sn, sc, sh, sw, C, NC, W, iy, wy, ty, ix, wx, tx,
                                      scale, out, dh, dw, tile_h, band_w);
 }
@@ -647,7 +614,7 @@ extern "C" int oft_resample(const float* src, long long sn, long long sc, long l
     }
     return static_cast<int>(cudaGetLastError());
   }
-  if (tile_h <= 0 || band_w <= 0 || smem <= 0 || smem > 48 * 1024 ||
+  if (tile_h <= 0 || band_w <= 0 || smem <= 0 || smem > SMEM ||
       (load == 2 && (C != 2 || NC % 2 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the shared memory the kernel lays out, which the plan must give
@@ -658,26 +625,16 @@ extern "C" int oft_resample(const float* src, long long sn, long long sc, long l
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((dw + TILE_W - 1) / TILE_W, (dh + tile_h - 1) / tile_h, 1);
   if (path == BAND && !vertical_first && (tile_h == 8 || tile_h == 16) && band_h > 0 &&
-      (load == 4 || load == 1)) {
-    const bool two_taps = ty == 2 && tx == 2;
-    if (load == 4 && two_taps) {
-      launch_band<4, 2>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy,
-                        ty, ix, wx, tx, scale, out, dh, dw, band_h, band_w);
-    } else if (load == 4) {
-      launch_band<4, 0>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy,
-                        ty, ix, wx, tx, scale, out, dh, dw, band_h, band_w);
-    } else if (two_taps) {
-      launch_band<1, 2>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy,
-                        ty, ix, wx, tx, scale, out, dh, dw, band_h, band_w);
-    } else {
-      launch_band<1, 0>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy,
-                        ty, ix, wx, tx, scale, out, dh, dw, band_h, band_w);
-    }
-  } else if (path == COLUMNS && vertical_first) {
+      ty == 2 && tx == 2 && (load == 4 || load == 1)) {
     if (load == 4) {
-      launch_columns<4>(grid, smem, s, src, sn, sc, sh, sw, C, NC, W, iy, wy, ty, ix, wx, tx,
-                        scale, out, dh, dw, tile_h, band_w);
-    } else if (load == 2) {
+      launch_band<4>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy, ix, wx,
+                     scale, out, dh, dw, band_h, band_w);
+    } else {
+      launch_band<1>(tile_h, grid, smem, s, src, sn, sc, sh, sw, C, NC, H, W, iy, wy, ix, wx,
+                     scale, out, dh, dw, band_h, band_w);
+    }
+  } else if (path == COLUMNS && vertical_first && (load == 2 || load == 1)) {
+    if (load == 2) {
       launch_columns<2>(grid, smem, s, src, sn, sc, sh, sw, C, NC, W, iy, wy, ty, ix, wx, tx,
                         scale, out, dh, dw, tile_h, band_w);
     } else {

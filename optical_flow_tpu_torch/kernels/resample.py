@@ -23,12 +23,12 @@ The host plans each launch (`plan`) from the tables' per-tile spans,
 which each cached `Table` carries, and from x's strides: the band kernel
 (the bilinear resizes: a tile's tables staged in shared memory once, its
 source band once a plane with the next plane's in flight, 4 outputs and
-one 16-byte store a thread), the columns kernel (INTER_AREA: source rows
-streamed with 16-byte loads into the tile's vertical sums, the seed's
-(B, H, W, 2) layout two pixels of both channels a load), or the generic
-kernel (an output a thread) where the band would not fit, no source
-pixel is read twice, or the tiles would mostly cover nothing (the
-levels=5 resizes, the 72x129 frames).
+one 16-byte store a thread), the columns kernel (INTER_AREA on the seed:
+source rows streamed into the tile's vertical sums, its (B, H, W, 2)
+layout two pixels of both channels a 16-byte load), or the generic
+kernel (an output a thread) for the other tables and layouts, and where
+the band would not fit, no source pixel is read twice, or the tiles
+would mostly cover nothing (the levels=5 resizes, the 72x129 frames).
 `tests/test_torch_kernel_tiles.py:emulate_x1` repeats each plan in
 numpy.  No path is a fallback: the plan is fixed by the shapes before
 the launch, and a failing launch raises.
@@ -66,10 +66,11 @@ def _kernel():
 # `csrc/resample.cu`: output columns a tile of the band and columns
 # kernels, the tile lengths whose spans a table carries (1 to TILE_W
 # outputs, powers of two), and the dynamic shared memory a block may
-# take (the default limit, which needs no opt-in).
+# take (its SMEM: the 48 KB a block has without an opt-in, less the 16
+# bytes those kernels declare statically).
 TILE_W = 128
 TILE_LENGTHS = tuple(1 << k for k in range(TILE_W.bit_length()))
-SMEM = 48 * 1024
+SMEM = 48 * 1024 - 16
 PATHS = {"generic": 0, "band": 1, "columns": 2}
 
 
@@ -77,13 +78,15 @@ class Table(NamedTuple):
     """An axis's taps on one device: (d_len, T) int32 source indices and
     f32 weights, the source span [lo, hi) the indices reach, `spans[k]`
     the largest span (max - min + 1) of the indices of a tile of
-    TILE_LENGTHS[k] consecutive outputs (tiles from output 0)."""
+    TILE_LENGTHS[k] consecutive outputs (tiles from output 0), and
+    `shape` = (d_len, T, spans), what `plan` reads of the table."""
     index: torch.Tensor
     weight: torch.Tensor
     lo: int
     hi: int
     spans: tuple
     device: torch.device
+    shape: tuple
 
 
 def _to_table(idx: np.ndarray, wt: np.ndarray, device: torch.device) -> Table:
@@ -102,7 +105,7 @@ def _to_table(idx: np.ndarray, wt: np.ndarray, device: torch.device) -> Table:
                           - np.minimum.reduceat(first, starts)).max()) + 1)
     lo, hi = int(first.min()), int(last.max()) + 1
     return Table(torch.as_tensor(idx, device=device), torch.as_tensor(wt, device=device),
-                 lo, hi, tuple(spans), torch.device(device))
+                 lo, hi, tuple(spans), torch.device(device), (*idx.shape, tuple(spans)))
 
 
 @functools.lru_cache(maxsize=512)
@@ -174,12 +177,12 @@ def _tiled(dh: int, dw: int, tile_h: int) -> bool:
 
 @functools.lru_cache(maxsize=1024)
 def _plan(vertical_first: bool, load: int, ytab: tuple, xtab: tuple) -> Plan:
-    """`plan` from the launch's shape: ytab, xtab = (outputs, taps,
-    spans)."""
+    """`plan` from the launch's shape: ytab, xtab = the tables' `shape`,
+    (outputs, taps, spans)."""
     (dh, ty, yspans), (dw, tx, xspans) = ytab, xtab
     col_span = xspans[-1]
     tables = 8 * TILE_W * tx
-    if not vertical_first:
+    if not vertical_first and ty == tx == 2:
         load = 4 if load == 4 else 1
         band_w = _round4(col_span + (3 if load == 4 else 0))
         for tile_h in (16, 8):
@@ -191,8 +194,8 @@ def _plan(vertical_first: bool, load: int, ytab: tuple, xtab: tuple) -> Plan:
             reused = band_h * band_w < min(tile_h, dh) * min(TILE_W, dw) * ty * tx
             if smem <= SMEM and reused and _tiled(dh, dw, tile_h):
                 return Plan("band", load, tile_h, band_h, band_w, smem)
-    else:
-        channels = 2 if load == 2 else 1
+    elif vertical_first and load < 4:
+        channels = load
         band_w = _round4(col_span + load - 1)
         pitch = band_w + band_w // 32            # a word of padding every 32
         for tile_h in (8, 4, 2, 1):
@@ -204,32 +207,33 @@ def _plan(vertical_first: bool, load: int, ytab: tuple, xtab: tuple) -> Plan:
 
 def plan(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool) -> Plan:
     """The X1 launch for x (..., H, W) and the tables, decided on the host
-    before the launch from the tables' spans and x's strides (the same on
-    a CPU tensor): the band kernel for the horizontal pass first and the
-    columns kernel for the vertical pass first where the tile's band fits
-    SMEM (a bilinear downsample past about 2x does not: its taps skip
-    rows and columns), the band kernel's taps read its band more than
-    once over, and the tiles cover the output planes without much waste
-    (`_tiled`); else the generic kernel.  Loads move 16 bytes where
-    x's planes and rows are 16-byte aligned with unit column stride, or
-    where x is the (B, H, W, 2) layout (C == 2, channel stride 1, column
-    stride 2: the seed); else one float."""
-    return _plan_of(_planes(x), ytab, xtab, vertical_first)
+    before the launch from the tables' shapes and x's strides (the same on
+    a CPU tensor).  The band kernel takes the horizontal pass first with
+    both tables bilinear (2 taps), the columns kernel the vertical pass
+    first on the (B, H, W, 2) layout (C == 2, channel stride 1, column
+    stride 2: the seed) or on element loads, each where the tile's band
+    fits SMEM (a bilinear downsample past about 2x does not: its taps
+    skip rows and columns), the band kernel's taps read its band more
+    than once over, and the tiles cover the output planes without much
+    waste (`_tiled`); the generic kernel takes the rest (unit tables, an
+    axis that grows, INTER_AREA on planar rows).  The band kernel loads 16
+    bytes where x's planes and rows are 16-byte aligned with unit column
+    stride, the columns kernel 16 bytes of the (B, H, W, 2) layout; else
+    one float."""
+    v = _planes(x)
+    return _plan(vertical_first, _load(v.data_ptr(), v.shape[1], v.stride()),
+                 ytab.shape, xtab.shape)
 
 
-def _plan_of(v: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool) -> Plan:
-    """`plan` for x as its (N, C, H, W) view v."""
-    c = v.shape[1]
-    sn, sc, sh, sw = v.stride()
-    aligned = v.data_ptr() % 16 == 0 and sn % 4 == 0 and sh % 4 == 0
-    if aligned and sw == 1 and sc % 4 == 0:
-        load = 4
-    elif aligned and c == 2 and sc == 1 and sw == 2:
-        load = 2
-    else:
-        load = 1
-    return _plan(vertical_first, load, (*ytab.index.shape, ytab.spans),
-                 (*xtab.index.shape, xtab.spans))
+def _load(ptr: int, c: int, strides: tuple) -> int:
+    """The floats a load moves for planes at ptr with C = c and (N, C, H,
+    W) strides: 4 (a plane's row), 2 (the (B, H, W, 2) layout) or 1."""
+    sn, sc, sh, sw = strides
+    if ptr % 16 or sn % 4 or sh % 4:
+        return 1
+    if sw == 1 and sc % 4 == 0:
+        return 4
+    return 2 if c == 2 and sc == 1 and sw == 2 else 1
 
 
 def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
@@ -246,8 +250,8 @@ def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
     dev = x.device
     if ytab.device != dev or xtab.device != dev:
         raise ValueError(f"the tables are on {ytab.device} and {xtab.device}, x on {dev}")
-    dh, ty = ytab.index.shape
-    dw, tx = xtab.index.shape
+    dh, ty, _ = ytab.shape
+    dw, tx, _ = xtab.shape
     v = _planes(x)
     n, c, h, w = v.shape
     out = torch.empty(tuple(x.shape[:-2]) + (dh, dw), dtype=torch.float32, device=dev)
@@ -259,9 +263,9 @@ def _resample(x: torch.Tensor, ytab: Table, xtab: Table, vertical_first: bool,
         if tab.lo < 0 or tab.hi > length:
             raise ValueError(f"{name} reads source [{tab.lo}, {tab.hi}), past a "
                              f"length of {length}")
-    pl = _plan_of(v, ytab, xtab, vertical_first)
-    sn, sc, sh, sw = v.stride()
-    rc = _kernel()(v.data_ptr(), sn, sc, sh, sw, c, n * c, h, w,
+    ptr, strides = v.data_ptr(), v.stride()
+    pl = _plan(vertical_first, _load(ptr, c, strides), ytab.shape, xtab.shape)
+    rc = _kernel()(ptr, *strides, c, n * c, h, w,
                    ytab.index.data_ptr(), ytab.weight.data_ptr(), ty,
                    xtab.index.data_ptr(), xtab.weight.data_ptr(), tx,
                    int(vertical_first), float(scale), out.data_ptr(), dh, dw,

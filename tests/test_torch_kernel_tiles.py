@@ -883,10 +883,10 @@ def emulate_x1(x, ytab, xtab, vertical_first, scale):
     band of source rows and columns they reach copied from the storage
     through x's strides (entries past the frame left NaN: never read),
     the sums in table order.  columns: the row table absolute, the
-    columns' vertical sums streamed from the storage a load at a time (4
-    columns; or (x0, y0, x1, y1) of 2 pixels of the (B, H, W, 2) layout,
-    split into the two channels' planes; or one element), then the
-    horizontal sums from them.  generic: each output from the tables."""
+    columns' vertical sums streamed from the storage a load at a time
+    ((x0, y0, x1, y1) of 2 pixels of the (B, H, W, 2) layout, split into
+    the two channels' planes; or one element), then the horizontal sums
+    from them.  generic: each output from the tables."""
     pl = resample.plan(x, ytab, xtab, vertical_first)
     iy, wy = ytab.index.numpy(), ytab.weight.numpy()
     ix, wx = xtab.index.numpy(), xtab.weight.numpy()
@@ -1036,14 +1036,14 @@ X1_AREA_CASES = [
     # (n, h, w, dh, dw, layout, launches' paths)
     (1, 1080, 1920, 135, 240, "pairs", ("columns",)),     # the seed at 1080p, read strided
     (2, 72, 129, 36, 64, "pairs", ("generic",)),          # the 72x129 seed: tiles 2.2x
-    (2, 36, 1000, 9, 125, "planar", ("columns",)),        # 16-byte loads
+    (2, 36, 1000, 9, 125, "planar", ("generic",)),        # planar rows: not the seed's
     (2, 36, 1000, 9, 125, "offset", ("columns",)),        # element loads
-    (2, 36, 998, 9, 125, "narrow", ("columns",)),         # the last load of a row cut
+    (2, 36, 998, 9, 125, "narrow", ("generic",)),
     (2, 24, 480, 6, 120, "pairs", ("columns",)),          # 16-byte pair loads
     (2, 30, 360, 7, 101, "pairs", ("columns",)),          # pads at index 0
     (2, 60, 512, 120, 128, "pairs", ("band", "generic")),  # an axis grows: two launches
-    (2, 60, 500, 120, 128, "pairs", ("band", "band")),    # 5 column taps, 1 row tap
-    (2, 512, 60, 128, 120, "pairs", ("columns", "columns")),
+    (2, 60, 500, 120, 128, "pairs", ("band", "generic")),  # 5 column taps, 1 row tap
+    (2, 512, 60, 128, 120, "pairs", ("columns", "generic")),
     (2, 64, 128, 64, 128, "pairs", ("columns",)),         # the same size: x * scale
     (2, 40, 1000, 5, 13, "pairs", ("generic",)),          # 78 column taps: over SMEM
 ]
