@@ -180,7 +180,10 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     first chunk's first pair is appended to it as host arrays.  Under
     OFT_DEBUG_NANS=1 (`utils/validate.py`) each chunk's flow is checked
     on the device and read with its sums; a non-finite chunk raises
-    FloatingPointError."""
+    FloatingPointError.  `metrics` gets the stages `upload` (a frame),
+    `flow` (a chunk's dispatch) and `drain` (the wait for a chunk's sums
+    and their hand-off), which do not nest, and on a card the pinned
+    pool's growth (`PipelineMetrics.add_pinned_growth`)."""
     mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
@@ -193,14 +196,15 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
 
     def drain_one():
         chk, sums, finite = inflight.pop(0)
-        if finite is not None and not bool(finite):
-            raise FloatingPointError(
-                f"non-finite flow in the chunk from frame {chk[0][1][0]} "
-                "(OFT_DEBUG_NANS=1)")
-        for (idx, (s, e)), v in zip(chk, sums.cpu().tolist()):
-            results[idx] = (s, e, v)
-            if on_result is not None:
-                on_result(idx, s, e, v)
+        with metrics.stage("drain"):
+            if finite is not None and not bool(finite):
+                raise FloatingPointError(
+                    f"non-finite flow in the chunk from frame {chk[0][1][0]} "
+                    "(OFT_DEBUG_NANS=1)")
+            for (idx, (s, e)), v in zip(chk, sums.cpu().tolist()):
+                results[idx] = (s, e, v)
+                if on_result is not None:
+                    on_result(idx, s, e, v)
 
     def flush(chunk):
         if validate_sample is not None and not validate_sample:
@@ -221,10 +225,12 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
 
     evict_th = 0
     peak_live = 0
+    metrics.pinned_baseline(device)
     for pos, frame in frames:
         if frame is None:
             break
-        live[pos] = upload(frame, device)
+        with metrics.stage("upload"):
+            live[pos] = upload(frame, device)
         metrics.add("frames_decoded")
         peak_live = max(peak_live, len(live))
         while (pending is not None and pending[1][0] in live
@@ -249,6 +255,7 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     while inflight:
         drain_one()
     metrics.counters["peak_live_frames"] = peak_live
+    metrics.add_pinned_growth(device)
     return results
 
 

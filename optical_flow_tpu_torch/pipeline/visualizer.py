@@ -91,7 +91,11 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     and every visible card where `_dp_mesh` gives a mesh (each takes one
     sub-chain of a chunk, `chain_shards`); raises without a card; "cpu"
     runs the plain versions.  `plain` as in calc_flow_batched (one
-    device).  Returns the number of pairs written."""
+    device).  `metrics` gets the stages `upload` (a frame), `flow` (a
+    chunk's dispatch), `download` (the wait for a chunk's BGR) and `write`
+    (the calls of `write`), which do not nest, and on a card the pinned
+    pool's growth (`PipelineMetrics.add_pinned_growth`).  Returns the
+    number of pairs written."""
     mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("visualize")
@@ -108,7 +112,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
             raise FloatingPointError(
                 f"non-finite flow in the chunk from frame {dpend[0] - 1} "
                 f"(position {stamps[dpend[0] - 1]}; OFT_DEBUG_NANS=1)")
-        with metrics.stage("encode"):
+        with metrics.stage("write"):
             for j, i in enumerate(dpend):
                 write(stamps[i], host[j])
                 written += 1
@@ -141,10 +145,12 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
         if len(inflight) > 1:
             drain_one()
 
+    metrics.pinned_baseline(device)
     for pos, g in frames:
         stamps.append(pos)
         i = len(gray)
-        gray.append(upload(g, device))
+        with metrics.stage("upload"):
+            gray.append(upload(g, device))
         if i >= 1:
             pend.append(i)
             if len(pend) >= chunk_size:
@@ -154,6 +160,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
         flush(pend)
     while inflight:
         drain_one()
+    metrics.add_pinned_growth(device)
     return written
 
 

@@ -766,6 +766,44 @@ def test_extract_frames_on_the_card(dev):
             assert abs(v - ref[i][2]) <= 1e-4 * abs(ref[i][2])
 
 
+@pytest.mark.parametrize("loop", ["extract", "visualize"])
+def test_pinned_counters_are_the_pools_growth(dev, loop):
+    """The loops' counters `pinned_allocs` and `pinned_alloc_us` equal the
+    deltas of `torch.cuda.host_memory_stats()` around each call (the
+    first from a fresh `PipelineMetrics`), and every frame is one
+    `upload` stage; a torch whose statistics lack a key has no counter."""
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor, visualizer
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PINNED_STATS, PipelineMetrics
+
+    m = PipelineMetrics(loop)
+    want = dict.fromkeys(PINNED_STATS, 0)
+    frames = 0
+    for n in (9, 21):         # the second call's frames are larger
+        h, w = (72, 129) if n == 9 else (144, 258)
+        seq = list(zip(range(n), translating_clip(h, w, list(range(n)))))
+        before = torch.cuda.host_memory_stats()
+        if loop == "extract":
+            windows = list(enumerate((i, i + 2) for i in range(n - 2)))
+            extractor.extract_frames(seq, windows, ExtractorConfig(), chunk_size=4,
+                                     device=dev, metrics=m)
+        else:
+            visualizer.visualize_frames(seq, lambda pos, bgr: None, chunk_size=4,
+                                        device=dev, metrics=m)
+        after = torch.cuda.host_memory_stats()
+        frames += n
+        for counter, key in PINNED_STATS.items():
+            if key in after:
+                want[counter] += after[key] - before.get(key, 0)
+        assert m.stages["upload"].count == frames
+        assert m.counters.get("pinned_allocs") == (
+            want["pinned_allocs"] if "num_host_alloc" in after else None)
+        assert m.counters.get("pinned_alloc_us") == (
+            want["pinned_alloc_us"] if "host_alloc_time.total" in after else None)
+    assert m.stages["drain" if loop == "extract" else "download"].count > 0
+
+
 STRIP_SHAPES = [(1, 1), (2, 2), (31, 33), (33, 31), (65, 65), (1, 65), (65, 2)]
 STRIP_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
                  (31, False), (31, True), (61, False), (61, True)]
