@@ -1702,8 +1702,9 @@ def busy_share(loop, name: str) -> dict:
 def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
                                dev, power) -> None:
     """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
-    over a `corpus_clip`: the needed frames upload one by one through
-    pinned memory, chunks of `pair_chunk_for(h, w)` pairs, two in flight.
+    over a `corpus_clip`: the needed frames staged into pinned group
+    buffers, one copy to the card a group (`GROUP_BYTES`), chunks of
+    `pair_chunk_for(h, w)` pairs, two in flight.
     Held to the plain path on the card (sums 1e-4 rel, the scaled CSV
     line identical), to the FUSE_POLYEXP run (sums equal to the bit), and
     one pair's flow to its true flow; windows/s and the busy share

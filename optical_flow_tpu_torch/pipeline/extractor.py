@@ -22,9 +22,10 @@ Behavioral contract, the JAX package's:
 
 Each needed frame is decoded once, in order, by the decode-ahead threads,
 which also resize it to `frame_width` and convert it to gray
-(`ops/host.py`); `extract_frames` uploads it through pinned memory and
-sends the window pairs to the card `pair_chunk_for` at a time, two chunks
-in flight, one host sync per chunk for its sums.  On a host with more
+(`ops/host.py`); `extract_frames` stages it into a slot of a pinned
+group buffer, sends each group to the card in one copy, and sends the
+window pairs to the card `pair_chunk_for` at a time, two chunks in
+flight, one host sync per chunk for its sums.  On a host with more
 than one visible card, where the caller names no device (None, or
 "cuda" without an index), a chunk is split over every card as the JAX
 package splits it over the local chips (`_dp_mesh`,
@@ -49,8 +50,7 @@ from optical_flow_tpu_torch.ops import polar
 from optical_flow_tpu_torch.ops.host import bgr2gray_host, resize_gray_host
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
 from optical_flow_tpu_torch.parallel.mesh import Mesh, _shard_magnitude_sums, make_mesh
-from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
-                                                      pair_chunk_for, upload)
+from optical_flow_tpu_torch.pipeline.prefetch import DecodePrefetcher, pair_chunk_for
 from optical_flow_tpu_torch.utils.config import (EXTRACTOR, ExtractorConfig,
                                                  FarnebackConfig)
 from optical_flow_tpu_torch.utils import validate
@@ -61,11 +61,27 @@ from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 logger = get_logger("optical_flow_tpu_torch.extractor")
 
 # Counters of the most recent extract_video run (frames decoded, frame
-# pairs, peak_live_frames: the device-residency bound, and
-# validate_mean_epe with --validate).
+# pairs, peak_live_frames: the device-residency bound in frames, and
+# validate_mean_epe with --validate).  A frame is a slot of its group's
+# device tensor, which stays whole while any of its slots is live: up to
+# GROUP_BYTES more than the live frames may stay on the device.
 LAST_RUN_COUNTERS: dict = {}
 
 Window = Tuple[int, Tuple[int, int]]          # (window index, (start, end))
+
+# The most bytes of frames one host-to-device copy carries (one frame at
+# least): 112 frames at 72x129, one 1080p frame alone.
+GROUP_BYTES = 1 << 20
+
+
+def _group_buffer(frame: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host buffer of GROUP_BYTES' worth of frames like `frame` (one at
+    least), pinned for a card: a fresh block of torch's caching host
+    allocator each time, which reuses a block only once the copies that
+    read it are done."""
+    cap = max(1, GROUP_BYTES // max(frame.nbytes, 1))
+    return torch.empty((cap, *frame.shape), dtype=torch.from_numpy(frame).dtype,
+                       pin_memory=device.type == "cuda")
 
 
 def _window_schedule(tot_frames: int, fps: float, step_ms: int, window_ms: int):
@@ -169,26 +185,32 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     once; a None frame is a failed read and ends the stream.  windows:
     (index, (start, end)) in index order.  Returns {index: (start, end,
     magnitude sum)} of the windows whose two frames arrived before any
-    failure.  Frames upload one by one (through pinned memory to a card);
-    a chunk of `chunk_size` pairs goes to the device as one batch, two
-    chunks stay in flight, and a chunk's sums come back with one host
-    sync, each then passed to on_result(index, start, end, sum).  Frames
-    below the earliest start still needed are dropped.  device: by
-    default the current card, and every visible card where `_dp_mesh`
-    gives a mesh; "cpu" runs the plain versions.  `plain` as in
+    failure.  Each frame is copied into the next slot of a group buffer
+    (pinned on a card), and a group goes to the device in one copy when
+    the chunk it feeds is flushed or when one more frame would take it
+    past GROUP_BYTES; a chunk of `chunk_size` pairs goes to the device as
+    one batch, two chunks stay in flight, and a chunk's sums come back
+    with one host sync, each then passed to on_result(index, start, end,
+    sum).  Frames below the earliest start still needed are dropped.
+    device: by default the current card, and every visible card where
+    `_dp_mesh` gives a mesh; "cpu" runs the plain versions.  `plain` as in
     calc_flow_batched (one device).  With `validate_sample` (a list), the
     first chunk's first pair is appended to it as host arrays.  Under
     OFT_DEBUG_NANS=1 (`utils/validate.py`) each chunk's flow is checked
     on the device and read with its sums; a non-finite chunk raises
-    FloatingPointError.  `metrics` gets the stages `upload` (a frame),
-    `flow` (a chunk's dispatch) and `drain` (the wait for a chunk's sums
-    and their hand-off), which do not nest, and on a card the pinned
-    pool's growth (`PipelineMetrics.add_pinned_growth`)."""
+    FloatingPointError.  `metrics` gets the stages `upload` (a frame's
+    copy into its slot, and the send of the group that frame fills),
+    `flow` (a chunk's dispatch, after the send of its last group) and
+    `drain` (the wait for a chunk's sums and their hand-off), which do
+    not nest, the counter `h2d_copies` (one a group sent), and on a card
+    the pinned pool's growth (`PipelineMetrics.add_pinned_growth`)."""
     mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
     results = {}
-    live = {}                          # pos -> frame on the device
+    live = {}                          # pos -> frame on the device, None while staged
+    group = slots = None               # the group being staged, and its numpy view
+    staged: List[int] = []             # the positions in its slots
     inflight = []
     win_iter = iter(windows)
     pending = next(win_iter, None)
@@ -206,16 +228,29 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
                 if on_result is not None:
                     on_result(idx, s, e, v)
 
+    def send():
+        # one copy for the group; its pinned block goes back to the pool
+        # with the last reference, here
+        nonlocal group, slots
+        sent = group[:len(staged)].to(device, non_blocking=True)
+        for p, f in zip(staged, sent.unbind()):
+            if p in live:
+                live[p] = f
+        group = slots = None
+        staged.clear()
+        metrics.add("h2d_copies")
+
     def flush(chunk):
-        if validate_sample is not None and not validate_sample:
-            s, e = chunk[0][1]
-            validate_sample.append((live[s].cpu().numpy(), live[e].cpu().numpy()))
         with metrics.stage("flow"):
+            if group is not None:
+                send()
             prev = torch.stack([live[w[0]] for _, w in chunk])
             nxt = torch.stack([live[w[1]] for _, w in chunk])
             sums, finite = _magnitude_sums(prev, nxt, config, device=device,
                                            plain=plain, nan_check=validate.DEBUG_NANS,
                                            mesh=mesh)
+        if validate_sample is not None and not validate_sample:
+            validate_sample.append((prev[0].cpu().numpy(), nxt[0].cpu().numpy()))
         metrics.add("frame_pairs", len(chunk))
         inflight.append((chunk, sums, finite))
         # two chunks in flight; older results are complete by now, so
@@ -230,7 +265,14 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
         if frame is None:
             break
         with metrics.stage("upload"):
-            live[pos] = upload(frame, device)
+            if group is None:
+                group = _group_buffer(frame, device)
+                slots = group.numpy()
+            np.copyto(slots[len(staged)], frame)
+            staged.append(pos)
+            live[pos] = None
+            if len(staged) == len(slots):
+                send()
         metrics.add("frames_decoded")
         peak_live = max(peak_live, len(live))
         while (pending is not None and pending[1][0] in live

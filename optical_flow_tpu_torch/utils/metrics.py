@@ -114,7 +114,7 @@ class PipelineMetrics:
             parts.append(f"{pairs} pairs ({pairs / total:.1f} pairs/s)")
         for k, v in sorted(self.stages.items()):
             parts.append(f"{k}={v.seconds:.2f}s/{v.count}x")
-        for k in PINNED_STATS:
+        for k in ("frames_decoded", "h2d_copies", *PINNED_STATS):
             if k in self.counters:
                 parts.append(f"{k}={self.counters[k]}")
         logger.info("; ".join(parts))

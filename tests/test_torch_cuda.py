@@ -804,6 +804,79 @@ def test_pinned_counters_are_the_pools_growth(dev, loop):
     assert m.stages["drain" if loop == "extract" else "download"].count > 0
 
 
+def _clip_w129():
+    """A 10 s clip at 25 fps and 72x129, windows and step 300 ms: 36
+    windows over 72 frames, each its own crop of one texture."""
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor
+
+    windows, _ = extractor._window_schedule(250, 25.0, 300, 300)
+    todo = list(enumerate(windows))
+    needed = sorted({f for _, win in todo for f in win})
+    return list(zip(needed, translating_clip(72, 129, [f % 97 - 48 for f in needed]))), todo
+
+
+def test_h2d_copies_are_the_traces_memcpy(dev):
+    """One `extract_frames` call on a 10 s clip at 72x129: its 72 frames
+    go to the card in one group, and the trace's `Memcpy HtoD` are the
+    counter `h2d_copies`, one."""
+    from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    seq, todo = _clip_w129()
+    extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=128, device=dev)
+    torch.cuda.synchronize()
+    m = PipelineMetrics("extract")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=128,
+                                       device=dev, metrics=m)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and e.name().startswith("Memcpy HtoD")]
+    assert sorted(got) == list(range(36))
+    assert len(copies) == m.counters["h2d_copies"] == 1
+    assert m.stages["upload"].count == m.counters["frames_decoded"] == 72
+
+
+def test_staging_is_safe_while_copies_are_queued(dev, monkeypatch):
+    """Groups of 4 frames, each group's copy queued behind about 10 ms of
+    `torch.cuda._sleep`, enqueued as its buffer is taken, while the host
+    stages the next groups with other frames: a pinned buffer written
+    again before its copy ran would
+    change the sums, which equal the default grouping's to the bit and
+    the plain path's on the CPU within 1e-4 rel."""
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    seq, todo = _clip_w129()
+
+    def run(**kw):
+        return extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=8, **kw)
+
+    ref = run(device=dev)
+    cpu = run(device="cpu")
+    group_buffer = extractor._group_buffer
+
+    def late_group_buffer(frame, device):
+        # ahead of this group's copy on the stream
+        torch.cuda._sleep(20_000_000)
+        return group_buffer(frame, device)
+
+    monkeypatch.setattr(extractor, "GROUP_BYTES", 4 * seq[0][1].nbytes)
+    monkeypatch.setattr(extractor, "_group_buffer", late_group_buffer)
+    m = PipelineMetrics("extract")
+    got = run(device=dev, metrics=m)
+    assert m.counters["h2d_copies"] >= len(seq) // 4
+    assert got == ref and sorted(got) == list(range(36))
+    for i, (s, e, v) in got.items():
+        assert (s, e) == cpu[i][:2]
+        assert abs(v - cpu[i][2]) <= 1e-4 * abs(cpu[i][2])
+
+
 STRIP_SHAPES = [(1, 1), (2, 2), (31, 33), (33, 31), (65, 65), (1, 65), (65, 2)]
 STRIP_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
                  (31, False), (31, True), (61, False), (61, True)]

@@ -25,12 +25,13 @@ from optical_flow_tpu.pipeline import extractor as jextractor
 from optical_flow_tpu.utils.config import ExtractorConfig as JaxExtractorConfig
 from optical_flow_tpu_torch.cli import optical_flow as tcli
 from optical_flow_tpu_torch.io import sidecar
-from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
+from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair, translating_clip
 from optical_flow_tpu_torch.ops import host
 from optical_flow_tpu_torch.ops import resize
 from optical_flow_tpu_torch.parallel import corpus
 from optical_flow_tpu_torch.pipeline import extractor
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
+from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
 from test_torch_visualizer import assert_parser_matches_jax
 
@@ -156,21 +157,57 @@ def _sequence(n, h=40, w=56):
     return [(i, f1 if i % 2 == 0 else f2) for i in range(n)]
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 5])
-def test_extract_frames_equals_the_pairs(chunk):
+def _distinct(n, h=40, w=56):
+    """n frames, each its own crop of one texture."""
+    return list(enumerate(translating_clip(h, w, [(3 * i) % 25 - 12 for i in range(n)])))
+
+
+SPREAD = [(0, 3), (2, 5), (4, 8), (6, 9), (9, 11)]
+OVERLAP = [(0, 4), (2, 6), (4, 8), (6, 10), (8, 11)]
+
+
+@pytest.mark.parametrize("chunk,windows,group_frames,failed,copies", [
+    pytest.param(1, SPREAD, None, None, None, id="1"),
+    pytest.param(2, SPREAD, None, None, None, id="2"),
+    pytest.param(5, SPREAD, None, None, None, id="5"),
+    # windows longer than their step: frames 4 and 6 of the first flush's
+    # group feed the second chunk, whose ends lie in the next group
+    pytest.param(2, OVERLAP, None, None, 3, id="overlap_across_flush"),
+    # one chunk of five windows over four groups of three frames
+    pytest.param(5, SPREAD, 3, None, 4, id="chunk_over_groups"),
+    pytest.param(1, SPREAD, 2, None, 7, id="chunk1_groups_of_2"),
+    # frame 7 fails with frames 4-6 staged: the last flush sends them
+    pytest.param(5, SPREAD, 4, 7, 2, id="failed_read_mid_group"),
+])
+def test_extract_frames_equals_the_pairs(chunk, windows, group_frames, failed, copies,
+                                         monkeypatch):
     """Every window's sum equals magnitude_sums of its pair, in any
-    chunking, and reaches on_result in window order."""
-    seq = _sequence(12)
-    windows = list(enumerate([(0, 3), (2, 5), (4, 8), (6, 9), (9, 11)]))
-    got = []
-    res = extractor.extract_frames(seq, windows, ExtractorConfig(), chunk_size=chunk,
-                                   device="cpu", on_result=lambda *r: got.append(r))
+    chunking and grouping of the staged frames (GROUP_BYTES lowered to
+    `group_frames` frames), and reaches on_result in window order; after a
+    failed read only the windows decoded before it; one `h2d_copies` a
+    group sent."""
+    seq = _sequence(12) if copies is None else _distinct(12)
+    if group_frames is not None:
+        monkeypatch.setattr(extractor, "GROUP_BYTES", group_frames * seq[0][1].nbytes)
     frames = dict(seq)
+    if failed is not None:
+        seq[failed] = (failed, None)
+    windows = list(enumerate(windows))
+    got = []
+    m = PipelineMetrics("extract")
+    res = extractor.extract_frames(seq, windows, ExtractorConfig(), chunk_size=chunk,
+                                   device="cpu", metrics=m,
+                                   on_result=lambda *r: got.append(r))
+    if failed is not None:
+        windows = [(i, w) for i, w in windows if w[1] < failed]
     prev = np.stack([frames[s] for _, (s, e) in windows])
     nxt = np.stack([frames[e] for _, (s, e) in windows])
     ref = extractor.magnitude_sums(prev, nxt, device="cpu").tolist()
     assert res == {i: (s, e, v) for (i, (s, e)), v in zip(windows, ref)}
     assert got == [(i, s, e, v) for (i, (s, e)), v in zip(windows, ref)]
+    assert m.stages["upload"].count == m.counters["frames_decoded"] == (failed or 12)
+    if copies is not None:
+        assert m.counters["h2d_copies"] == copies
 
 
 def test_extract_frames_stops_at_a_failed_read():

@@ -187,3 +187,16 @@ def test_log_summary_names_the_pinned_counters(monkeypatch):
     m.add("pinned_alloc_us", 1250)
     m.log_summary()
     assert "pinned_allocs=3" in lines[1] and "pinned_alloc_us=1250" in lines[1]
+
+
+def test_log_summary_names_the_frames_and_their_copies(monkeypatch):
+    """The extractor's summary line gives `frames_decoded` beside
+    `h2d_copies`, one a group of staged frames sent."""
+    lines = []
+    monkeypatch.setattr(metrics_mod.logger, "info", lines.append)
+    monkeypatch.setattr(extractor, "GROUP_BYTES", 5 * 24 * 32)
+    m = PipelineMetrics("extract")
+    _extract(5, m)
+    m.log_summary()
+    # groups of 5 frames: 0-4 and 5-9 sent as they fill, 10-11 by the flush
+    assert "frames_decoded=12" in lines[0] and "h2d_copies=3" in lines[0]
