@@ -70,15 +70,17 @@ LAST_RUN_COUNTERS: dict = {}
 Window = Tuple[int, Tuple[int, int]]          # (window index, (start, end))
 
 # The most bytes of frames one host-to-device copy carries (one frame at
-# least): 112 frames at 72x129, one 1080p frame alone.
+# least): 112 frames at 72x129, so a 10 s clip's 72 frames are one copy;
+# a 1080p frame (2,073,600 B) is past it, so each is a group of its own,
+# 72 copies a 10 s clip.
 GROUP_BYTES = 1 << 20
 
 
 def _group_buffer(frame: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host buffer of GROUP_BYTES' worth of frames like `frame` (one at
-    least), pinned for a card: a fresh block of torch's caching host
-    allocator each time, which reuses a block only once the copies that
-    read it are done."""
+    least: a 1080p frame gets a buffer of its own), pinned for a card: a
+    fresh block of torch's caching host allocator each time, which reuses
+    a block only once the copies that read it are done."""
     cap = max(1, GROUP_BYTES // max(frame.nbytes, 1))
     return torch.empty((cap, *frame.shape), dtype=torch.from_numpy(frame).dtype,
                        pin_memory=device.type == "cuda")
@@ -202,8 +204,10 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     copy into its slot, and the send of the group that frame fills),
     `flow` (a chunk's dispatch, after the send of its last group) and
     `drain` (the wait for a chunk's sums and their hand-off), which do
-    not nest, the counter `h2d_copies` (one a group sent), and on a card
-    the pinned pool's growth (`PipelineMetrics.add_pinned_growth`)."""
+    not nest, the counters `h2d_copies` (one a group sent) and
+    `staged_bytes` (the bytes of the frames copied into their slots), and
+    on a card the pinned pool's growth
+    (`PipelineMetrics.add_pinned_growth`)."""
     mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
@@ -260,6 +264,7 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
 
     evict_th = 0
     peak_live = 0
+    staged_bytes = 0
     metrics.pinned_baseline(device)
     for pos, frame in frames:
         if frame is None:
@@ -269,6 +274,7 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
                 group = _group_buffer(frame, device)
                 slots = group.numpy()
             np.copyto(slots[len(staged)], frame)
+            staged_bytes += frame.nbytes
             staged.append(pos)
             live[pos] = None
             if len(staged) == len(slots):
@@ -297,6 +303,7 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     while inflight:
         drain_one()
     metrics.counters["peak_live_frames"] = peak_live
+    metrics.add("staged_bytes", staged_bytes)
     metrics.add_pinned_growth(device)
     return results
 

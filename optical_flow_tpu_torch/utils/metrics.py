@@ -114,7 +114,11 @@ class PipelineMetrics:
             parts.append(f"{pairs} pairs ({pairs / total:.1f} pairs/s)")
         for k, v in sorted(self.stages.items()):
             parts.append(f"{k}={v.seconds:.2f}s/{v.count}x")
-        for k in ("frames_decoded", "h2d_copies", *PINNED_STATS):
+        for k in ("frames_decoded", "h2d_copies", "staged_bytes", *PINNED_STATS):
             if k in self.counters:
                 parts.append(f"{k}={self.counters[k]}")
+        upload = self.stages.get("upload")
+        if self.counters.get("staged_bytes") and upload and upload.seconds > 0:
+            rate = self.counters["staged_bytes"] / upload.seconds / 1e9
+            parts.append(f"upload_gb_per_s={rate:.3f}")
         logger.info("; ".join(parts))

@@ -877,6 +877,52 @@ def test_staging_is_safe_while_copies_are_queued(dev, monkeypatch):
         assert abs(v - cpu[i][2]) <= 1e-4 * abs(cpu[i][2])
 
 
+def test_extract_frames_at_1080p(dev):
+    """A 10 s clip at 1080x1920 (`--frame_width 1920` on 1080p sources)
+    through `extract_frames` at the default GROUP_BYTES and the chunk
+    `pair_chunk_for` gives, one chunk of its 36 windows: each 2 MB frame
+    is a group of its own, so the trace's `Memcpy HtoD` are the counter
+    `h2d_copies`, 72, and `staged_bytes` the 72 frames' bytes; X2 runs in
+    its two launches; the sums are the plain path's on the card within
+    1e-4 rel."""
+    from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    windows, _ = extractor._window_schedule(250, 25.0, 300, 300)
+    todo = list(enumerate(windows))
+    needed = sorted({f for _, win in todo for f in win})
+    seq = list(zip(needed, translating_clip(1080, 1920, [f % 97 - 48 for f in needed])))
+    chunk = pair_chunk_for(1080, 1920, device=dev)
+    assert chunk >= len(todo) == 36 and len(seq) == 72
+
+    def run(**kw):
+        return extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=chunk,
+                                        device=dev, **kw)
+
+    ref = run(plain=True)
+    run()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    m = PipelineMetrics("extract")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = run(metrics=m)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and e.name().startswith("Memcpy HtoD")]
+    assert sorted(got) == sorted(ref) == list(range(36))
+    assert len(copies) == m.counters["h2d_copies"] == 72
+    assert m.counters["staged_bytes"] == 72 * 1080 * 1920
+    assert kernels.LAUNCHES["X2"] == 2
+    for i, (s, e, v) in got.items():
+        assert (s, e) == ref[i][:2]
+        assert abs(v - ref[i][2]) <= 1e-4 * abs(ref[i][2])
+
+
 STRIP_SHAPES = [(1, 1), (2, 2), (31, 33), (33, 31), (65, 65), (1, 65), (65, 2)]
 STRIP_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
                  (31, False), (31, True), (61, False), (61, True)]
