@@ -1403,7 +1403,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
     from optical_flow_tpu_torch.models.farneback.params import build_plan
     from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
     from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
-    from optical_flow_tpu_torch.pipeline.visualizer import visualize_frames
+    from optical_flow_tpu_torch.pipeline.visualizer import DISPATCH_PIXELS, visualize_frames
 
     f1, f2 = smooth_texture_pair(h, w, SHIFT)
     seq = [(float(i), f2 if i % 2 else f1) for i in range(BATCH + 1)]
@@ -1420,7 +1420,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
         return np.stack(out)
 
     n_levels = len(build_plan(h, w, cfg).levels)
-    n_chunks = -(-BATCH // chunk)
+    n_chunks = -(-BATCH // min(chunk, -(-DISPATCH_PIXELS // (h * w))))
     expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
                 "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks,
                 "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,

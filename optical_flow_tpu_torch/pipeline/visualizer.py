@@ -20,10 +20,14 @@ Behavioral contract:
 Sampled frames stream through the decode-ahead threads, which also convert
 them to gray; `visualize_frames` runs the chained pyramid and K4 on the
 device, a chunk of pairs per dispatch, and keeps one chunk in flight while
-it downloads the one before; JPEG encode runs on a host thread pool.  On a
-host with several visible cards (`pipeline/extractor.py:_dp_mesh`) a chunk
-is split into overlapping sub-chains, one a card (`parallel/mesh.py:
-chain_shards`), as the JAX visualizer splits it over the local chips.
+it downloads the one before; JPEG encode runs on a host thread pool.  A
+chunk is dispatched once its pairs hold `DISPATCH_PIXELS` pixels, or at
+`chunk_size` pairs (the memory cap) where that comes first, so the card
+runs and downloads a long shot's first chunks while the host still
+uploads the rest.  On a host with several visible cards
+(`pipeline/extractor.py:_dp_mesh`) a chunk is split into overlapping
+sub-chains, one a card (`parallel/mesh.py:chain_shards`), as the JAX
+visualizer splits it over the local chips.
 """
 
 from __future__ import annotations
@@ -50,16 +54,26 @@ from optical_flow_tpu_torch.utils import validate
 from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
+# Pixels of frame pairs (pairs x H x W) at which `visualize_frames`
+# dispatches its pending pairs before `chunk_size` is reached, per card of
+# a mesh.  Each dispatch costs the loop's thread about 1.5 ms of host work;
+# the last one's kernels and download are waited for when the shot ends.
+# 16 pairs at 1080p, the fastest of 16, 24, 32, 48 and 80 in the long
+# shots on an H100 (PERF.md).
+DISPATCH_PIXELS = 16 * 1080 * 1920
 
-def _download(parts, streams: dict) -> np.ndarray:
-    """A chunk's BGR, [(shard's BGR, its `ready` event)] in pair order, to
-    one host numpy array.  On a card each shard's copy runs on its card's
-    copy stream (`streams`) into pinned memory and waits only for that
-    shard's `ready` event, so the next chunk's kernels keep running
-    meanwhile."""
+
+def _start_download(parts, streams: dict):
+    """Starts a chunk's BGR, [(shard's BGR, its `ready` event)] in pair
+    order, on its way to one host tensor: (the host tensor, the events to
+    wait for before reading it).  On a card each shard's copy is enqueued
+    on its card's copy stream (`streams`) into pinned memory behind that
+    shard's `ready` event, so it runs once the chunk's kernels end, beside
+    the next chunk's uploads and kernels; the shards' BGR must stay alive
+    until the events have passed."""
     if parts[0][1] is None:
         return (parts[0][0] if len(parts) == 1
-                else torch.cat([bgr for bgr, _ in parts])).numpy()
+                else torch.cat([bgr for bgr, _ in parts])), []
     n = sum(bgr.shape[0] for bgr, _ in parts)
     host = torch.empty((n,) + tuple(parts[0][0].shape[1:]), dtype=torch.uint8,
                        pin_memory=True)
@@ -70,9 +84,13 @@ def _download(parts, streams: dict) -> np.ndarray:
         with torch.cuda.stream(stream):
             host[off:off + bgr.shape[0]].copy_(bgr, non_blocking=True)
         off += bgr.shape[0]
+    # an event a stream, not the stream itself: the next chunk's copies,
+    # queued behind its kernels, follow on the same streams
+    copied = []
     for stream in {streams[bgr.device] for bgr, _ in parts}:
-        stream.synchronize()
-    return host.numpy()
+        copied.append(torch.cuda.Event())
+        copied[-1].record(stream)
+    return host, copied
 
 
 def visualize_frames(frames: Iterable[Tuple[float, object]],
@@ -84,20 +102,28 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
 
     frames: (pos, gray uint8 (H, W)) in order.  For every consecutive pair
     (i-1, i), calls write(pos_i, planar BGR uint8 (3, H, W) numpy) in
-    order.  Pairs go to the device `chunk_size` at a time as one chain
-    (`calc_flow_chain_batched`, then K4), each chunk restacking the previous
-    chunk's last frame; a chunk is downloaded once the next one is
-    dispatched.  device: where the flow runs, by default the current card,
-    and every visible card where `_dp_mesh` gives a mesh (each takes one
-    sub-chain of a chunk, `chain_shards`); raises without a card; "cpu"
-    runs the plain versions.  `plain` as in calc_flow_batched (one
-    device).  `metrics` gets the stages `upload` (a frame), `flow` (a
-    chunk's dispatch), `download` (the wait for a chunk's BGR) and `write`
-    (the calls of `write`), which do not nest, and on a card the pinned
-    pool's growth (`PipelineMetrics.add_pinned_growth`).  Returns the
-    number of pairs written."""
+    order.  Pending pairs go to the device as one chain
+    (`calc_flow_chain_batched`, then K4) once they hold `DISPATCH_PIXELS`
+    pixels (times the mesh's cards), or at `chunk_size` pairs, whichever
+    comes first, and at the end of the frames; each chunk restacks the
+    previous chunk's last frame.  K4 normalises each image on its own, so
+    the images do not depend on where the chain is cut.  A chunk's copy to
+    the host is enqueued with its kernels, on a copy stream, and the chunk
+    is written once the next one is dispatched.  device: where the flow
+    runs, by default the current card, and every visible card where
+    `_dp_mesh` gives a mesh (each takes one sub-chain of a chunk,
+    `chain_shards`); raises without a card; "cpu" runs the plain
+    versions.  `plain` as in calc_flow_batched (one device).  `metrics`
+    gets the stages `upload` (a frame), `flow` (a chunk's dispatch and the
+    enqueue of its copy), `download` (the wait for a chunk's BGR on the
+    host) and `write` (the calls of `write`), which do not nest, the
+    counters `dispatches` and `early_dispatches` (those the pixels made,
+    before `chunk_size` and the end of the frames), and on a card the
+    pinned pool's growth (`PipelineMetrics.add_pinned_growth`).  Returns
+    the number of pairs written."""
     mesh = None if plain else _dp_mesh(device)
     device = resolve_device(device)
+    budget = DISPATCH_PIXELS * (1 if mesh is None else mesh.devices.size)
     metrics = metrics or PipelineMetrics("visualize")
     streams = {}              # a copy stream per card that holds a shard
     stamps, gray, pend, inflight = [], [], [], []
@@ -105,9 +131,12 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
 
     def drain_one():
         nonlocal written
-        dpend, parts, finite = inflight.pop(0)
+        # the chunk's BGR on the card (its second item) lives until here
+        dpend, _, host, copied, finite = inflight.pop(0)
         with metrics.stage("download"):
-            host = _download(parts, streams)
+            for event in copied:
+                event.synchronize()
+            host = host.numpy()
         if finite is not None and not all(bool(f) for f in finite):
             raise FloatingPointError(
                 f"non-finite flow in the chunk from frame {dpend[0] - 1} "
@@ -117,7 +146,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
                 write(stamps[i], host[j])
                 written += 1
 
-    def flush(pend):
+    def flush(pend, early=False):
         with metrics.stage("flow"):
             chain = torch.stack([gray[pend[0] - 1]] + [gray[i] for i in pend])
             if mesh is not None:
@@ -137,11 +166,14 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
                     ready = torch.cuda.Event()
                     ready.record(torch.cuda.current_stream(bgr.device))
                 parts.append((bgr, ready))
+            host, copied = _start_download(parts, streams)
         metrics.add("frame_pairs", len(pend))
+        metrics.add("dispatches")
+        metrics.add("early_dispatches", int(early))
         for i in pend:
             gray[i - 1] = None     # pairs are consecutive: frame i-1 is done
         finite = None if not validate.DEBUG_NANS else [f for _, f in shards]
-        inflight.append((list(pend), parts, finite))
+        inflight.append((list(pend), parts, host, copied, finite))
         if len(inflight) > 1:
             drain_one()
 
@@ -153,8 +185,9 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
             gray.append(upload(g, device))
         if i >= 1:
             pend.append(i)
-            if len(pend) >= chunk_size:
-                flush(pend)
+            full = len(pend) >= chunk_size
+            if full or len(pend) * gray[i].numel() >= budget:
+                flush(pend, early=not full)
                 pend = []
     if pend:
         flush(pend)

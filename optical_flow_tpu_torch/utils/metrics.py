@@ -114,7 +114,8 @@ class PipelineMetrics:
             parts.append(f"{pairs} pairs ({pairs / total:.1f} pairs/s)")
         for k, v in sorted(self.stages.items()):
             parts.append(f"{k}={v.seconds:.2f}s/{v.count}x")
-        for k in ("frames_decoded", "h2d_copies", "staged_bytes", *PINNED_STATS):
+        for k in ("frames_decoded", "h2d_copies", "staged_bytes", "dispatches",
+                  "early_dispatches", *PINNED_STATS):
             if k in self.counters:
                 parts.append(f"{k}={self.counters[k]}")
         upload = self.stages.get("upload")

@@ -140,9 +140,10 @@ def warmup_visualizer(src_h: int, src_w: int,
                       config: FarnebackConfig = FarnebackConfig(), *,
                       device=None) -> dict:
     """Launch the visualizer's device step for a source resolution once:
-    the chained flow + colorize on the `(pair_chunk_for(h, w) + 1, h, w)`
-    frame stack `visualize_frames` sends, split into sub-chains where the
-    visualizer splits it.  `chunk` is the pair count."""
+    the chained flow + colorize on the largest frame stack
+    `visualize_frames` sends, `(pair_chunk_for(h, w) + 1, h, w)`, split
+    into sub-chains where the visualizer splits it.  `chunk` is the pair
+    count."""
     mesh = _dp_mesh(device)
     device = resolve_device(device)
     b = pair_chunk_for(src_h, src_w, device=device)

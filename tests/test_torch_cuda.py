@@ -804,6 +804,58 @@ def test_pinned_counters_are_the_pools_growth(dev, loop):
     assert m.stages["drain" if loop == "extract" else "download"].count > 0
 
 
+def test_visualize_frames_dispatches_a_long_shot_by_pixels(dev, monkeypatch):
+    """A 1080p shot of 40 pairs at the chunk `pair_chunk_for` gives, each
+    dispatch's kernels queued behind about 10 ms of `torch.cuda._sleep`
+    (so the frames' copies and pinned blocks wait on them): the images
+    equal the shot's as one chunk to the bit, the counters are the
+    dispatches `DISPATCH_PIXELS` gives, and in a profile the first
+    dispatch's kernels start before the last frame's `Memcpy HtoD`."""
+    from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import visualizer
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    h, w, pairs = 1080, 1920, 40
+    seq = list(enumerate(translating_clip(h, w, [i % 97 - 48 for i in range(pairs + 1)])))
+    chunk = pair_chunk_for(h, w, device=dev)
+    per = -(-visualizer.DISPATCH_PIXELS // (h * w))
+    assert per < min(chunk, pairs)
+
+    def run(**kw):
+        out = []
+        visualizer.visualize_frames(seq, lambda pos, bgr: out.append(bgr.copy()),
+                                    chunk_size=chunk, device=dev, **kw)
+        return np.stack(out)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(visualizer, "DISPATCH_PIXELS", chunk * h * w)
+        one = run()
+    dispatch = visualizer.calc_flow_chain_batched
+
+    def late_dispatch(frames, *args, **kw):
+        torch.cuda._sleep(20_000_000)
+        return dispatch(frames, *args, **kw)
+
+    monkeypatch.setattr(visualizer, "calc_flow_chain_batched", late_dispatch)
+    run()
+    torch.cuda.synchronize()
+    m = PipelineMetrics("visualize")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = run(metrics=m)
+        torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, one)
+    assert m.counters["dispatches"] == -(-pairs // per)
+    assert m.counters["early_dispatches"] == pairs // per
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    copies = sorted(e.start_ns() for e in ops if e.name().startswith("Memcpy HtoD"))
+    work = sorted(e.start_ns() for e in ops if not e.name().startswith(("Memcpy", "Memset")))
+    assert len(copies) == pairs + 1
+    assert work[0] < copies[-1]
+
+
 def _clip_w129():
     """A 10 s clip at 25 fps and 72x129, windows and step 300 ms: 36
     windows over 72 frames, each its own crop of one texture."""

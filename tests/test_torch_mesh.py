@@ -36,6 +36,7 @@ from optical_flow_tpu_torch.parallel import (chain_shards, make_mesh, shard_pair
 from optical_flow_tpu_torch.pipeline import extractor, visualizer
 from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
+from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
 CPU = torch.device("cpu")
 FLOW_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -249,6 +250,37 @@ def test_visualize_frames_through_a_mesh(chain, monkeypatch):
     for (p, a), (q, b) in zip(meshed, solo):
         assert p == q
         np.testing.assert_array_equal(a, b)
+
+
+def test_visualize_frames_pixel_budget_scales_with_the_mesh(chain, monkeypatch):
+    """The visualizer's dispatch budget is one card's pixels times the
+    mesh's cards: at 2 pairs a card, one device dispatches 9 pairs as
+    2, 2, 2, 2, 1 and a 2-way mesh as 4, 4, 1, with the same BGR bytes."""
+    frames = [(float(i), f) for i, f in enumerate(chain)]
+    monkeypatch.setattr(visualizer, "DISPATCH_PIXELS", 2 * chain[0].size)
+    sizes = []
+    split = visualizer.chain_shards
+
+    def shards(frames, n):
+        sizes.append(frames.shape[0] - 1)
+        return split(frames, n)
+
+    monkeypatch.setattr(visualizer, "chain_shards", shards)
+
+    def run():
+        out = []
+        m = PipelineMetrics("visualize")
+        visualizer.visualize_frames(frames, lambda pos, bgr: out.append(bgr),
+                                    chunk_size=8, device="cpu", metrics=m)
+        return np.stack(out), m.counters
+
+    solo, solo_counts = run()
+    monkeypatch.setattr(visualizer, "_dp_mesh", lambda device=None: _mesh(2))
+    meshed, mesh_counts = run()
+    assert (solo_counts["dispatches"], solo_counts["early_dispatches"]) == (5, 4)
+    assert sizes == [4, 4, 1]
+    assert (mesh_counts["dispatches"], mesh_counts["early_dispatches"]) == (3, 2)
+    np.testing.assert_array_equal(meshed, solo)
 
 
 def test_warmers_through_a_mesh(monkeypatch):

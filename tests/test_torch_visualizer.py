@@ -31,6 +31,7 @@ from optical_flow_tpu_torch.models.farneback import flow as tflow
 from optical_flow_tpu_torch.pipeline import visualizer
 from optical_flow_tpu.utils.config import FarnebackConfig as JaxConfig
 from optical_flow_tpu_torch.utils.config import FarnebackConfig, VisualizerConfig
+from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
 from test_torch_flow import assert_flow_close
 
@@ -146,6 +147,43 @@ def test_visualize_frames_keeps_one_chunk_in_flight(monkeypatch):
                                       + ["dispatch"] + ["write"] * 3 + ["write"])
     assert [e[1] for e in events if e[0] == "dispatch"] == [3, 3, 1]
     assert writes == [p for p, _ in _gray_sequence(8)[1:]]
+
+
+@pytest.mark.parametrize("pairs, chunk, budget_pairs, sizes, early", [
+    (2, 10, 3, [2], 0),                  # shorter than one sub-chunk
+    (3, 10, 3, [3], 1),                  # exactly one
+    (4, 10, 3, [3, 1], 1),               # one more than one
+    (11, 10, 3, [3, 3, 3, 2], 3),        # several, and a remainder
+    (8, 10, 2.5, [3, 3, 2], 2),          # the budget between two pair counts
+    (7, 2, 3, [2, 2, 2, 1], 0),          # chunk_size below the budget
+])
+def test_visualize_frames_dispatches_by_pixels(monkeypatch, pairs, chunk, budget_pairs,
+                                               sizes, early):
+    """Pending pairs are dispatched once they hold DISPATCH_PIXELS pixels,
+    or at chunk_size where that comes first; the images still equal one
+    chain over all frames, in order, and the counters count every dispatch
+    and those the pixels made."""
+    seq = _gray_sequence(pairs + 1)
+    h, w = seq[0][1].shape
+    monkeypatch.setattr(visualizer, "DISPATCH_PIXELS", int(budget_pairs * h * w))
+    dispatched = []
+    real = visualizer.calc_flow_chain_batched
+
+    def dispatch(frames, *args, **kw):
+        dispatched.append(frames.shape[0] - 1)
+        return real(frames, *args, **kw)
+
+    monkeypatch.setattr(visualizer, "calc_flow_chain_batched", dispatch)
+    m = PipelineMetrics("visualize")
+    got = []
+    n = visualizer.visualize_frames(seq, lambda pos, bgr: got.append((pos, bgr.copy())),
+                                    chunk_size=chunk, device="cpu", metrics=m)
+    assert n == pairs and dispatched == sizes
+    assert m.counters["dispatches"] == len(sizes) == m.stages["flow"].count
+    assert m.counters["early_dispatches"] == early
+    assert [p for p, _ in got] == [p for p, _ in seq[1:]]
+    ref = tflow.calc_flow_bgr_chain_batched(np.stack([g for _, g in seq]), device="cpu").numpy()
+    np.testing.assert_array_equal(np.stack([b for _, b in got]), ref)
 
 
 def test_visualize_shot_matches_jax(clip, tmp_path):
