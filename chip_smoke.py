@@ -35,9 +35,9 @@ and 72x129 B=128 (`ab_K7_vs_K2_K1`).  Then it drives the
 extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
 (with FUSE_POLYEXP off and on: `e2e_fused_poly_1080p`, every level on
 K7) and at the extractor's 72x129, the extractor's device loop
-`extract_frames` on in-memory 25 fps clips (`e2e_extractor_corpus`:
-4000 frames at 72x129, 200 at 1080x1920, windows/s and busy share; the
-CSV line against the plain path's), the visualizer's device loop
+`extract_frames` on in-memory 25 fps clips (`e2e_extractor_loop`: 4000
+frames at 72x129, 200 at 1080x1920; launches, the sums and the CSV line
+against the plain path's, FUSE_POLYEXP's sums), the visualizer's device loop
 (`pipeline/visualizer.py:visualize_frames`: chained pyramid, K4 colorize,
 download) on 17 frames at 1080x1920 fed from memory, the Gaussian window
 (flags 256), the seeded entry (flags 4, `calc_flow` and
@@ -70,10 +70,9 @@ OFT_COMPILE_CACHE names another directory.
 --profile adds `profile_1080p`, `profile_deep_1080p`,
 `profile_winsize63_1080p`, `profile_8k` and `profile_72x129`: the device
 time per kernel, the kernels launched and the host-to-device copies per
-call and the busy share of the 1080p flow call under flags 0, 256 and 4,
+call and the device share of the 1080p flow call under flags 0, 256 and 4,
 with levels=5 and with winsize 63, of the 8K pair and of the extractor's
-72x129 chunk (torch.profiler); and `profile_extractor_corpus` (the
-extractor's loop at 72x129).  --profile-only builds, runs the X1 and X2
+72x129 chunk (torch.profiler).  --profile-only builds, runs the X1 and X2
 kernel phases (`kernel_X1`, `kernel_X2`: their checks, event and device
 times) and then the profile phases, and prints no result line.
 One JSON line per phase; then the card's nvidia-smi line, the kernels
@@ -1402,8 +1401,8 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
         calc_flow_batched, calc_flow_bgr_chain_batched, calc_flow_chain_batched)
     from optical_flow_tpu_torch.models.farneback.params import build_plan
     from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair
-    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
-    from optical_flow_tpu_torch.pipeline.visualizer import DISPATCH_PIXELS, visualize_frames
+    from optical_flow_tpu_torch.pipeline.prefetch import dispatch_pairs, pair_chunk_for
+    from optical_flow_tpu_torch.pipeline.visualizer import visualize_frames
 
     f1, f2 = smooth_texture_pair(h, w, SHIFT)
     seq = [(float(i), f2 if i % 2 else f1) for i in range(BATCH + 1)]
@@ -1420,7 +1419,7 @@ def e2e_visualizer_phase(name: str, h: int, w: int, cfg, dev, golden, power,
         return np.stack(out)
 
     n_levels = len(build_plan(h, w, cfg).levels)
-    n_chunks = -(-BATCH // min(chunk, -(-DISPATCH_PIXELS // (h * w))))
+    n_chunks = -(-BATCH // dispatch_pairs(h, w, chunk))
     expected = {"K3": (n_levels - 1) * n_chunks, "K2": n_levels * n_chunks,
                 "K1": n_levels * cfg.iterations * n_chunks, "K4": n_chunks,
                 "K5a": 0, "K5b": 0, "K6": 0, "K7": 0,
@@ -1556,12 +1555,12 @@ def mesh_dp_phase(dev, power) -> None:
         return np.stack(out)
 
     solo = loop()
-    dp_mesh = visualizer._dp_mesh
-    visualizer._dp_mesh = lambda device=None: mesh
+    dp_mesh = visualizer.dp_mesh
+    visualizer.dp_mesh = lambda device=None: mesh
     try:
         meshed = loop()
     finally:
-        visualizer._dp_mesh = dp_mesh
+        visualizer.dp_mesh = dp_mesh
     require(np.array_equal(meshed, solo), f"{name}: the visualizer's loop through the "
             f"mesh differs on {int((meshed != solo).sum())} bytes")
     require(np.array_equal(solo, one_bgr.cpu().numpy()),
@@ -1647,91 +1646,49 @@ def mesh_sp_phase(dev, power) -> None:
          card=power)
 
 
-def clip_offsets(n: int, amplitude: int) -> list:
-    """Column offsets of a clip moving 1 px per frame, back and forth
-    between 0 and `amplitude` (a triangle wave)."""
-    return [amplitude - abs(amplitude - i % (2 * amplitude)) for i in range(n)]
-
-
-def corpus_clip(h: int, w: int, n_frames: int, cfg, dev):
-    """An in-memory 25 fps clip of n_frames (h, w) gray frames moving 1 px
-    per frame (`translating_clip`) and the windows extract_video takes at
-    the default step and window (300 ms): (the needed (pos, frame) in
-    order, the (index, window)s, the ExtractorConfig, the chunk of
-    `pair_chunk_for(h, w)` pairs)."""
+def e2e_extractor_loop_phase(name: str, h: int, w: int, n_frames: int, cfg,
+                             dev, power) -> None:
+    """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
+    on an in-memory 25 fps clip moving 1 px a frame (`translating_clip`),
+    the windows `extract_video` takes at the default step and window, in
+    chunks of `pair_chunk_for(h, w)` pairs: its launches, its sums held
+    to the plain path (1e-4 rel) and its CSV line equal to the plain
+    path's, and with FUSE_POLYEXP its sums equal to the switch-off sums
+    (every level on K7).  The cells time this loop; this phase checks it."""
+    import torch
+    from optical_flow_tpu_torch.io.sidecar import mag_csv_line
+    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
+    from optical_flow_tpu_torch.models.farneback.params import build_plan
     from optical_flow_tpu_torch.oracle.synthetic import translating_clip
     from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
 
-    config = ExtractorConfig(farneback=cfg)
-    windows, _ = extractor._window_schedule(n_frames, 25.0, config.step_size,
-                                            config.window_size)
-    todo = list(enumerate(windows))
-    needed = sorted({f for _, win in todo for f in win})
-    dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
-    clip = translating_clip(h, w, [dxs[f] for f in needed])
-    return list(zip(needed, clip)), todo, config, pair_chunk_for(h, w, device=dev)
-
-
-def busy_share(loop, name: str) -> dict:
-    """One profiled run of `loop` after one unprofiled: wall and device ms,
-    the busy share, the kernels launched and the host-to-device copies,
-    and the six largest device events."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    loop()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loop()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = device_events(prof, 1)
-    # kernels and copies; not the metrics' stage ranges, which the trace
-    # also carries on the device's timeline
-    by_name = {n: ms for n, ms in ev["by_name"].items() if not n.startswith("extract/")}
-    device_ms = sum(by_name.values())
-    require(device_ms > 0, f"{name}: no device time traced")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-            "kernels": ev["kernels_per_call"], "h2d_copies": ev["h2d_copies_per_call"],
-            "top_device_ms": [[n[:60], ms] for n, ms in top]}
-
-
-def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
-                               dev, power) -> None:
-    """The extractor's device loop (`pipeline/extractor.py:extract_frames`)
-    over a `corpus_clip`: the needed frames staged into pinned group
-    buffers, one copy to the card a group (`GROUP_BYTES`), chunks of
-    `pair_chunk_for(h, w)` pairs, two in flight.
-    Held to the plain path on the card (sums 1e-4 rel, the scaled CSV
-    line identical), to the FUSE_POLYEXP run (sums equal to the bit), and
-    one pair's flow to its true flow; windows/s and the busy share
-    (torch.profiler) of each."""
-    import torch
-    from optical_flow_tpu_torch.io.sidecar import mag_csv_line
-    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
-    from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
-    from optical_flow_tpu_torch.models.farneback.params import build_plan
-    from optical_flow_tpu_torch.pipeline import extractor
-
     fps = 25.0
-    seq, todo, config, chunk = corpus_clip(h, w, n_frames, cfg, dev)
-    windows = [win for _, win in todo]
-    step = extractor._window_schedule(n_frames, fps, config.step_size,
-                                      config.window_size)[1]
-    dxs = clip_offsets(n_frames, min(48, w // 2 - 1))
+    config = ExtractorConfig(farneback=cfg)
+    windows, step = extractor._window_schedule(n_frames, fps, config.step_size,
+                                               config.window_size)
+    todo = list(enumerate(windows))
+    needed = sorted({f for win in windows for f in win})
+    amp = min(48, w // 2 - 1)          # a triangle wave of column offsets
+    dxs = [amp - abs(amp - f % (2 * amp)) for f in needed]
+    seq = list(zip(needed, translating_clip(h, w, dxs)))
+    chunk = pair_chunk_for(h, w, device=dev)
 
     def run(plain: bool = False) -> dict:
-        return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev,
-                                        plain=plain)
+        reset_launches()
+        out = extractor.extract_frames(seq, todo, config, chunk_size=chunk,
+                                       device=dev, plain=plain)
+        torch.cuda.synchronize()
+        return out
+
+    def csv_line(results) -> str:
+        mags, stamps = extractor.aggregate(results, n_frames, fps, step)
+        return mag_csv_line(extractor.scale_magnitudes(mags, config.top_percentile), stamps)
 
     n_chunks = -(-len(todo) // chunk)
     n_levels = len(build_plan(h, w, cfg).levels)
-    reset_launches()
     sums = run()
-    torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     expected = {"K1": 3 * n_levels * n_chunks, "K2": n_levels * n_chunks,
                 "K3": (n_levels - 1) * n_chunks, "K4": 0, "K5a": 0, "K5b": 0,
@@ -1747,55 +1704,22 @@ def e2e_extractor_corpus_phase(name: str, h: int, w: int, n_frames: int, cfg,
     rel = float((d / np.maximum(np.abs(ref), 1e-30)).max())
     require(bool((d <= 1e-4 * np.abs(ref)).all()),
             f"{name}: magnitude sums off the plain path by {rel} rel")
-
-    def csv_line(results) -> str:
-        mags, stamps = extractor.aggregate(results, n_frames, fps, step)
-        return mag_csv_line(extractor.scale_magnitudes(mags, config.top_percentile), stamps)
-
     line = csv_line(sums)
     require(line == csv_line(plain), f"{name}: the CSV line differs from the plain path's")
     fused_iterate.FUSE_POLYEXP = True
     try:
-        reset_launches()
         fused = run()
-        torch.cuda.synchronize()
         k7_launches = dict(LAUNCHES)
     finally:
         fused_iterate.FUSE_POLYEXP = False
     require(fused == sums, f"{name}: FUSE_POLYEXP sums != the switch-off sums")
     require(k7_launches == {**expected, "K1": 0, "K2": 0, "K7": 3 * n_levels * n_chunks},
             f"{name}: FUSE_POLYEXP launches {k7_launches}")
-
-    # one pair against its true flow: window 1 moves by 6 px (frames 4 -> 10)
-    s_, e_ = windows[1]
-    frame = dict(seq)
-    flow = calc_flow_batched(torch.as_tensor(frame[s_][None]).to(dev),
-                             torch.as_tensor(frame[e_][None]).to(dev), cfg)[0]
-    crop = CROP if h >= 1080 else 8
-    truth = torch.tensor([-(dxs[e_] - dxs[s_]), 0.0], device=dev)
-    epe = float((flow[crop:h - crop, crop:w - crop] - truth).norm(dim=-1).mean())
-    if h >= 1080:
-        require(epe <= EPE_GATE, f"{name}: interior EPE {epe} > {EPE_GATE} px")
-
-    def timed(plain: bool = False) -> float:
-        return len(todo) / median_s(lambda: run(plain), warmup=1, timed=3)
-
-    fields = {"windows_per_s": timed()}
-    fields["profiled"] = busy_share(run, name)
-    fused_iterate.FUSE_POLYEXP = True
-    try:
-        fields["fuse_polyexp_windows_per_s"] = timed()
-    finally:
-        fused_iterate.FUSE_POLYEXP = False
-    fields["plain_windows_per_s"] = timed(plain=True)
     emit(name, h=h, w=w, frames=n_frames, frames_uploaded=len(seq),
          windows=len(todo), chunk=chunk, launches=launches,
-         fuse_polyexp_launches=k7_launches,
-         sums_max_rel_err_vs_plain=rel, csv_equals_plain=True,
-         fuse_polyexp_sums_equal=True, csv_start_end=line.split("\t")[:2],
-         one_pair={"frames": [s_, e_], "true_flow": [-(dxs[e_] - dxs[s_]), 0.0],
-                   "interior_crop": crop, "interior_epe_px": epe},
-         **fields, card=power)
+         fuse_polyexp_launches=k7_launches, sums_max_rel_err_vs_plain=rel,
+         csv_equals_plain=True, fuse_polyexp_sums_equal=True,
+         csv_start_end=line.split("\t")[:2], card=power)
 
 
 def device_events(prof, calls: int) -> dict:
@@ -1822,16 +1746,13 @@ def profile_phase(dev, power) -> None:
     63, the 8K pair (B=1) and the extractor's 72x129 chunk (B=128), each
     profiled twice: torch.profiler over PROFILED calls after WARMUP.
     Device work is the sum of the CUDA events' device time per call, its
-    busy share that over the profiled wall time per call; every device
+    `device_share` that over the profiled wall time per call; every device
     event is listed by name, largest first, beside the kernels launched
-    and the host-to-device copies per call.  Then the extractor's device
-    loop at 72x129 (`profile_extractor_corpus`): windows/s and the busy
-    share."""
+    and the host-to-device copies per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
     from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
-    from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.utils.config import FarnebackConfig
 
     hd = frames(1080, 1920, dev)
@@ -1864,20 +1785,11 @@ def profile_phase(dev, power) -> None:
             emit(phase, run=run, flags=cfg.flags, levels=cfg.levels, winsize=cfg.winsize,
                  batch=prev.shape[0],
                  calls=PROFILED, wall_ms_per_call=wall_ms, device_ms_per_call=device_ms,
-                 busy_share=device_ms / wall_ms,
+                 device_share=device_ms / wall_ms,
                  kernels_per_call=ev["kernels_per_call"],
                  h2d_copies_per_call=ev["h2d_copies_per_call"],
                  top_device_ms_per_call=[[name[:70], ms] for name, ms in top],
                  card=power)
-    for run in range(2):
-        seq, todo, config, chunk = corpus_clip(72, 129, 4000, FarnebackConfig(), dev)
-
-        def loop():
-            return extractor.extract_frames(seq, todo, config, chunk_size=chunk, device=dev)
-
-        emit("profile_extractor_corpus", run=run, h=72, w=129, windows=len(todo),
-             chunk=chunk, windows_per_s=len(todo) / median_s(loop, warmup=1, timed=3),
-             profiled=busy_share(loop, "profile_extractor_corpus"), card=power)
 
 
 def selftest_phase(power) -> None:
@@ -1906,11 +1818,12 @@ def selftest_phase(power) -> None:
 
 def warmup_phase(dev, power) -> None:
     """The warmers at 1080p source frames (`utils/warmup.py`): each
-    launches its production step once at the chunk `pair_chunk_for` picks
-    on this card, and reports its seconds and peak device memory."""
+    launches its production step once at the chunk its pipeline sends on
+    this card (`pair_chunk_for`; the visualizer's `dispatch_pairs` of
+    it), and reports its seconds and peak device memory."""
     import torch
     from optical_flow_tpu_torch.kernels import LAUNCHES, reset_launches
-    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.pipeline.prefetch import dispatch_pairs, pair_chunk_for
     from optical_flow_tpu_torch.utils.warmup import (warmup_extractor, warmup_flow,
                                                      warmup_visualizer)
 
@@ -1930,7 +1843,8 @@ def warmup_phase(dev, power) -> None:
         require(info["peak_bytes"] < total, f"warmup {name}: peak past the card")
         runs[name] = {**info, "peak_gb": info["peak_bytes"] / 1e9, "launches": launches}
     torch.cuda.empty_cache()
-    require(runs["visualizer"]["chunk"] == chunk == runs["flow"]["chunk"],
+    require(runs["flow"]["chunk"] == chunk
+            and runs["visualizer"]["chunk"] == dispatch_pairs(1080, 1920, chunk),
             f"warmup: chunks {runs} against pair_chunk_for {chunk}")
     emit("warmup_1080p", pair_chunk_for_1080p=chunk, card_total_gb=total / 1e9,
          card=power, **runs)
@@ -2037,8 +1951,8 @@ def main(argv: list[str]) -> int:
     e2e_phase("e2e_fused_poly_1080p", 1080, 1920, cfg, dev, golden, power, stats,
               golden_key="1080x1920", fused_poly=True)
     torch.cuda.empty_cache()
-    e2e_extractor_corpus_phase("e2e_extractor_corpus", 72, 129, 4000, cfg, dev, power)
-    e2e_extractor_corpus_phase("e2e_extractor_corpus", 1080, 1920, 200, cfg, dev, power)
+    e2e_extractor_loop_phase("e2e_extractor_loop", 72, 129, 4000, cfg, dev, power)
+    e2e_extractor_loop_phase("e2e_extractor_loop", 1080, 1920, 200, cfg, dev, power)
     torch.cuda.empty_cache()
     kernel_k4_phase(1080, 1920, dev, stats)
     torch.cuda.empty_cache()

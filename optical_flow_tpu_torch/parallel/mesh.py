@@ -32,6 +32,8 @@ an order fixed by (H, W) alone, so each shard sums its own pairs and the
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -79,6 +81,24 @@ def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
     arr = np.empty(n_total, dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(n_data, n_spatial))
+
+
+@functools.lru_cache(maxsize=8)
+def dp_mesh(device=None) -> Optional[Mesh]:
+    """The device loops' data-parallel mesh over every visible card, or
+    None: with OFT_DISABLE_MESH=1, with one card or none visible, or where
+    the caller named a device (an indexed card, or the CPU; None and
+    "cuda" name none), as the JAX package's `_dp_mesh`
+    (`pipeline/extractor.py:70-80`)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return None
+    if os.environ.get("OFT_DISABLE_MESH") == "1":
+        return None
+    if torch.cuda.device_count() <= 1:
+        return None
+    return make_mesh(n_spatial=1)
 
 
 class ShardedBatch(NamedTuple):

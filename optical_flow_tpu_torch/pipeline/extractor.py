@@ -22,19 +22,18 @@ Behavioral contract, the JAX package's:
 
 Each needed frame is decoded once, in order, by the decode-ahead threads,
 which also resize it to `frame_width` and convert it to gray
-(`ops/host.py`); `extract_frames` stages it into a slot of a pinned
-group buffer, sends each group to the card in one copy, and sends the
-window pairs to the card `pair_chunk_for` at a time, two chunks in
-flight, one host sync per chunk for its sums.  On a host with more
-than one visible card, where the caller names no device (None, or
+(`ops/host.py`); `extract_frames` stages it to the card
+(`prefetch.DeviceStager`: pinned group buffers, one copy a group) and
+sends the window pairs to the card `pair_chunk_for` at a time, two
+chunks in flight, one host sync per chunk for its sums.  On a host with
+more than one visible card, where the caller names no device (None, or
 "cuda" without an index), a chunk is split over every card as the JAX
-package splits it over the local chips (`_dp_mesh`,
+package splits it over the local chips (`parallel/mesh.py:dp_mesh`,
 `_sharded_magnitude_sums`); `OFT_DISABLE_MESH=1` keeps it on one card.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
@@ -49,8 +48,9 @@ from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
 from optical_flow_tpu_torch.ops import polar
 from optical_flow_tpu_torch.ops.host import bgr2gray_host, resize_gray_host
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
-from optical_flow_tpu_torch.parallel.mesh import Mesh, _shard_magnitude_sums, make_mesh
-from optical_flow_tpu_torch.pipeline.prefetch import DecodePrefetcher, pair_chunk_for
+from optical_flow_tpu_torch.parallel.mesh import Mesh, _shard_magnitude_sums, dp_mesh
+from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher, DeviceStager,
+                                                      pair_chunk_for)
 from optical_flow_tpu_torch.utils.config import (EXTRACTOR, ExtractorConfig,
                                                  FarnebackConfig)
 from optical_flow_tpu_torch.utils import validate
@@ -61,29 +61,12 @@ from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 logger = get_logger("optical_flow_tpu_torch.extractor")
 
 # Counters of the most recent extract_video run (frames decoded, frame
-# pairs, peak_live_frames: the device-residency bound in frames, and
-# validate_mean_epe with --validate).  A frame is a slot of its group's
-# device tensor, which stays whole while any of its slots is live: up to
-# GROUP_BYTES more than the live frames may stay on the device.
+# pairs, peak_live_frames: the device-residency bound in frames, each a
+# slot of its group's device tensor (`prefetch.DeviceStager`), and
+# validate_mean_epe with --validate).
 LAST_RUN_COUNTERS: dict = {}
 
 Window = Tuple[int, Tuple[int, int]]          # (window index, (start, end))
-
-# The most bytes of frames one host-to-device copy carries (one frame at
-# least): 112 frames at 72x129, so a 10 s clip's 72 frames are one copy;
-# a 1080p frame (2,073,600 B) is past it, so each is a group of its own,
-# 72 copies a 10 s clip.
-GROUP_BYTES = 1 << 20
-
-
-def _group_buffer(frame: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host buffer of GROUP_BYTES' worth of frames like `frame` (one at
-    least: a 1080p frame gets a buffer of its own), pinned for a card: a
-    fresh block of torch's caching host allocator each time, which reuses
-    a block only once the copies that read it are done."""
-    cap = max(1, GROUP_BYTES // max(frame.nbytes, 1))
-    return torch.empty((cap, *frame.shape), dtype=torch.from_numpy(frame).dtype,
-                       pin_memory=device.type == "cuda")
 
 
 def _window_schedule(tot_frames: int, fps: float, step_ms: int, window_ms: int):
@@ -120,23 +103,6 @@ def _flow_and_sums(prev, nxt, config: FarnebackConfig, *, device, plain: bool):
     return flow, magnitude_sum(flow.movedim(-1, 1))
 
 
-@functools.lru_cache(maxsize=8)
-def _dp_mesh(device=None) -> Optional[Mesh]:
-    """A data-parallel mesh over every visible card, or None: with
-    OFT_DISABLE_MESH=1, with one card or none visible, or where the caller
-    named a device (an indexed card, or the CPU; None and "cuda" name
-    none), as the JAX package's `_dp_mesh` (`extractor.py:70-80`)."""
-    if device is not None:
-        device = torch.device(device)
-        if device.type != "cuda" or device.index is not None:
-            return None
-    if os.environ.get("OFT_DISABLE_MESH") == "1":
-        return None
-    if torch.cuda.device_count() <= 1:
-        return None
-    return make_mesh(n_spatial=1)
-
-
 def _sharded_magnitude_sums(mesh: Mesh, prev_batch, next_batch,
                             config: ExtractorConfig, nan_check: bool = False):
     """The mesh branch of the JAX package's `_magnitude_sums`
@@ -166,7 +132,7 @@ def _magnitude_sums(prev_batch, next_batch, config: ExtractorConfig, *, device,
     without a host sync each, and finite, with nan_check, a device bool:
     whether every component of the chunk's flow is finite
     (`utils/validate.py:DEBUG_NANS`); None without.  With a mesh
-    (`_dp_mesh`), the sharded branch, on the mesh's first device."""
+    (`dp_mesh`), the sharded branch, on the mesh's first device."""
     if mesh is not None:
         return _sharded_magnitude_sums(mesh, prev_batch, next_batch, config,
                                        nan_check)
@@ -187,34 +153,27 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     once; a None frame is a failed read and ends the stream.  windows:
     (index, (start, end)) in index order.  Returns {index: (start, end,
     magnitude sum)} of the windows whose two frames arrived before any
-    failure.  Each frame is copied into the next slot of a group buffer
-    (pinned on a card), and a group goes to the device in one copy when
-    the chunk it feeds is flushed or when one more frame would take it
-    past GROUP_BYTES; a chunk of `chunk_size` pairs goes to the device as
-    one batch, two chunks stay in flight, and a chunk's sums come back
-    with one host sync, each then passed to on_result(index, start, end,
-    sum).  Frames below the earliest start still needed are dropped.
-    device: by default the current card, and every visible card where
-    `_dp_mesh` gives a mesh; "cpu" runs the plain versions.  `plain` as in
-    calc_flow_batched (one device).  With `validate_sample` (a list), the
-    first chunk's first pair is appended to it as host arrays.  Under
-    OFT_DEBUG_NANS=1 (`utils/validate.py`) each chunk's flow is checked
-    on the device and read with its sums; a non-finite chunk raises
-    FloatingPointError.  `metrics` gets the stages `upload` (a frame's
-    copy into its slot, and the send of the group that frame fills),
-    `flow` (a chunk's dispatch, after the send of its last group) and
-    `drain` (the wait for a chunk's sums and their hand-off), which do
-    not nest, the counters `h2d_copies` (one a group sent) and
-    `staged_bytes` (the bytes of the frames copied into their slots), and
-    on a card the pinned pool's growth
-    (`PipelineMetrics.add_pinned_growth`)."""
-    mesh = None if plain else _dp_mesh(device)
+    failure.  Each frame is staged (`prefetch.DeviceStager`), its group
+    sent at the latest when the chunk it feeds is flushed; a chunk of
+    `chunk_size` pairs goes to the device as one batch, two chunks stay
+    in flight, and a chunk's sums come back with one host sync, each then
+    passed to on_result(index, start, end, sum).  Frames below the
+    earliest start still needed are dropped.  device: by default the
+    current card, and every visible card where `dp_mesh` gives a mesh;
+    "cpu" runs the plain versions.  `plain` as in calc_flow_batched (one
+    device).  With `validate_sample` (a list), the first chunk's first
+    pair is appended to it as host arrays.  Under OFT_DEBUG_NANS=1
+    (`utils/validate.py`) each chunk's flow is checked on the device and
+    read with its sums; a non-finite chunk raises FloatingPointError.
+    `metrics` gets the stages `upload` (a frame's staging), `flow` (a
+    chunk's dispatch, after the send of its last group) and `drain` (the
+    wait for a chunk's sums and their hand-off), which do not nest, and
+    the stager's counters."""
+    mesh = None if plain else dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
     results = {}
-    live = {}                          # pos -> frame on the device, None while staged
-    group = slots = None               # the group being staged, and its numpy view
-    staged: List[int] = []             # the positions in its slots
+    live = DeviceStager(device, metrics)     # pos -> frame on the device
     inflight = []
     win_iter = iter(windows)
     pending = next(win_iter, None)
@@ -232,22 +191,9 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
                 if on_result is not None:
                     on_result(idx, s, e, v)
 
-    def send():
-        # one copy for the group; its pinned block goes back to the pool
-        # with the last reference, here
-        nonlocal group, slots
-        sent = group[:len(staged)].to(device, non_blocking=True)
-        for p, f in zip(staged, sent.unbind()):
-            if p in live:
-                live[p] = f
-        group = slots = None
-        staged.clear()
-        metrics.add("h2d_copies")
-
     def flush(chunk):
         with metrics.stage("flow"):
-            if group is not None:
-                send()
+            live.send()
             prev = torch.stack([live[w[0]] for _, w in chunk])
             nxt = torch.stack([live[w[1]] for _, w in chunk])
             sums, finite = _magnitude_sums(prev, nxt, config, device=device,
@@ -264,21 +210,11 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
 
     evict_th = 0
     peak_live = 0
-    staged_bytes = 0
-    metrics.pinned_baseline(device)
     for pos, frame in frames:
         if frame is None:
             break
         with metrics.stage("upload"):
-            if group is None:
-                group = _group_buffer(frame, device)
-                slots = group.numpy()
-            np.copyto(slots[len(staged)], frame)
-            staged_bytes += frame.nbytes
-            staged.append(pos)
-            live[pos] = None
-            if len(staged) == len(slots):
-                send()
+            live.put(pos, frame)
         metrics.add("frames_decoded")
         peak_live = max(peak_live, len(live))
         while (pending is not None and pending[1][0] in live
@@ -303,8 +239,7 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     while inflight:
         drain_one()
     metrics.counters["peak_live_frames"] = peak_live
-    metrics.add("staged_bytes", staged_bytes)
-    metrics.add_pinned_growth(device)
+    live.finish()
     return results
 
 

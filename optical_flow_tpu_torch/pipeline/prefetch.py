@@ -1,6 +1,6 @@
 """Streamed decode with parallel segment readers and decode-ahead, the
-upload of a decoded frame and the chunk size of a device dispatch; a port
-of `optical_flow_tpu.pipeline.prefetch`.
+staging of decoded frames to the device and the sizes of a device
+dispatch; a port of `optical_flow_tpu.pipeline.prefetch`.
 
 The position list is split into contiguous segments, each decoded by its
 own native VideoReader on its own thread, feeding bounded queues that the
@@ -112,13 +112,69 @@ class DecodePrefetcher:
             self._stop.set()
 
 
-def upload(frame, device: torch.device) -> torch.Tensor:
-    """A decoded host frame to the device; to a card through pinned memory
-    and without waiting for the kernels already queued."""
-    t = torch.as_tensor(frame)
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+# The most bytes of frames one host-to-device copy carries (one frame at
+# least): 112 frames at 72x129; a 1080p frame (2,073,600 B) is a group of
+# its own.
+GROUP_BYTES = 1 << 20
+
+
+class DeviceStager(dict):
+    """A device loop's decoded host frames on their way to the device: a
+    dict of key -> the frame's device tensor, None while it is staged.
+
+    `put` copies a frame (numpy or a CPU tensor) into the next slot of a
+    group buffer, a fresh block of torch's caching host allocator (pinned
+    on a card).  A group goes to the device in one copy once one more
+    frame would take it past GROUP_BYTES, or at `send`, which the caller
+    calls before it reads a frame.  A frame's device tensor is a slot of
+    its group's, which stays whole while any slot is held.  `metrics`
+    gets `h2d_copies` (one a group sent) and, at `finish`, `staged_bytes`
+    and on a card the pinned pool's growth since the stager was made."""
+
+    def __init__(self, device: torch.device, metrics):
+        super().__init__()
+        self.device = device
+        self.metrics = metrics
+        self._group = self._slots = None   # the open group and its numpy view
+        self._staged = []          # the keys in its slots
+        self._bytes = 0            # of the groups sent
+        metrics.pinned_baseline(device)
+
+    def put(self, key, frame) -> None:
+        # once a frame: the state in locals, the bytes counted a group
+        slots, staged = self._slots, self._staged
+        if slots is None:
+            t = torch.from_numpy(np.asarray(frame))
+            cap = max(1, GROUP_BYTES // max(t.nbytes, 1))
+            self._group = torch.empty((cap, *t.shape), dtype=t.dtype,
+                                      pin_memory=self.device.type == "cuda")
+            slots = self._slots = self._group.numpy()
+        np.copyto(slots[len(staged)], frame)
+        staged.append(key)
+        self[key] = None
+        if len(staged) == len(slots):
+            self.send()
+
+    def send(self) -> None:
+        """The open group, if any, to the device in one copy; its pinned
+        block goes back to the pool with the last reference, here."""
+        if self._group is None:
+            return
+        part = self._group[:len(self._staged)]
+        self._bytes += part.nbytes
+        sent = part.to(self.device, non_blocking=True)
+        for key, f in zip(self._staged, sent.unbind()):
+            if key in self:
+                self[key] = f
+        self._group = self._slots = None
+        self._staged = []
+        self.metrics.add("h2d_copies")
+
+    def finish(self) -> None:
+        if self._group is not None:        # staged, never read: not sent
+            self._bytes += self._group[:len(self._staged)].nbytes
+        self.metrics.add("staged_bytes", self._bytes)
+        self.metrics.add_pinned_growth(self.device)
 
 
 _REF_DEVICE_BYTES = 16 << 30    # the 16 GiB chip the pixel budget was sized on
@@ -143,3 +199,18 @@ def pair_chunk_for(h: int, w: int, budget_pixels: Optional[int] = None,
             scale = 1.0
         budget_pixels = int((32 << 20) * scale)
     return max(1, min(cap, budget_pixels // (h * w)))
+
+
+# Pixels of frame pairs (pairs x H x W) that the visualizer dispatches at
+# once, per card of a mesh.  Each dispatch costs the loop's thread about
+# 1.5 ms of host work; the last one's kernels and download are waited for
+# when the shot ends.  16 pairs at 1080p, the fastest of 16, 24, 32, 48
+# and 80 in the long shots on an H100 (PERF.md).
+DISPATCH_PIXELS = 16 * 1080 * 1920
+
+
+def dispatch_pairs(h: int, w: int, chunk_size: int, cards: int = 1) -> int:
+    """Frame pairs of (h, w) per visualizer dispatch: the fewest that hold
+    DISPATCH_PIXELS pixels per card, at most `chunk_size` (the memory
+    cap).  16 at 1080p on one card."""
+    return min(chunk_size, -(-DISPATCH_PIXELS * cards // (h * w)))

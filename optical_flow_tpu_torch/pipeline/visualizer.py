@@ -18,14 +18,14 @@ Behavioral contract:
     `validate_mean_epe` (`utils/validate.py`).
 
 Sampled frames stream through the decode-ahead threads, which also convert
-them to gray; `visualize_frames` runs the chained pyramid and K4 on the
-device, a chunk of pairs per dispatch, and keeps one chunk in flight while
-it downloads the one before; JPEG encode runs on a host thread pool.  A
-chunk is dispatched once its pairs hold `DISPATCH_PIXELS` pixels, or at
-`chunk_size` pairs (the memory cap) where that comes first, so the card
-runs and downloads a long shot's first chunks while the host still
-uploads the rest.  On a host with several visible cards
-(`pipeline/extractor.py:_dp_mesh`) a chunk is split into overlapping
+them to gray; `visualize_frames` stages them to the device
+(`prefetch.DeviceStager`), runs the chained pyramid and K4 there, a chunk
+of pairs per dispatch, and keeps one chunk in flight while it downloads
+the one before; JPEG encode runs on a host thread pool.  A chunk is
+dispatched at `prefetch.dispatch_pairs` pairs, so the card runs and
+downloads a long shot's first chunks while the host still uploads the
+rest.  On a host with several visible cards
+(`parallel/mesh.py:dp_mesh`) a chunk is split into overlapping
 sub-chains, one a card (`parallel/mesh.py:chain_shards`), as the JAX
 visualizer splits it over the local chips.
 """
@@ -44,24 +44,14 @@ from optical_flow_tpu_torch.io.video import VideoReader
 from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow_chain_batched, flow_bgr)
 from optical_flow_tpu_torch.ops.host import bgr2gray_host
-from optical_flow_tpu_torch.parallel.mesh import _bgr_chain_shards, chain_shards
-from optical_flow_tpu_torch.pipeline.extractor import _dp_mesh
-from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher,
-                                                      pair_chunk_for, upload)
+from optical_flow_tpu_torch.parallel.mesh import _bgr_chain_shards, chain_shards, dp_mesh
+from optical_flow_tpu_torch.pipeline.prefetch import (DecodePrefetcher, DeviceStager,
+                                                      dispatch_pairs, pair_chunk_for)
 from optical_flow_tpu_torch.utils.config import (FarnebackConfig,
                                                  VisualizerConfig)
 from optical_flow_tpu_torch.utils import validate
 from optical_flow_tpu_torch.utils.device import resolve_device
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
-
-# Pixels of frame pairs (pairs x H x W) at which `visualize_frames`
-# dispatches its pending pairs before `chunk_size` is reached, per card of
-# a mesh.  Each dispatch costs the loop's thread about 1.5 ms of host work;
-# the last one's kernels and download are waited for when the shot ends.
-# 16 pairs at 1080p, the fastest of 16, 24, 32, 48 and 80 in the long
-# shots on an H100 (PERF.md).
-DISPATCH_PIXELS = 16 * 1080 * 1920
-
 
 def _start_download(parts, streams: dict):
     """Starts a chunk's BGR, [(shard's BGR, its `ready` event)] in pair
@@ -103,30 +93,30 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
     frames: (pos, gray uint8 (H, W)) in order.  For every consecutive pair
     (i-1, i), calls write(pos_i, planar BGR uint8 (3, H, W) numpy) in
     order.  Pending pairs go to the device as one chain
-    (`calc_flow_chain_batched`, then K4) once they hold `DISPATCH_PIXELS`
-    pixels (times the mesh's cards), or at `chunk_size` pairs, whichever
-    comes first, and at the end of the frames; each chunk restacks the
+    (`calc_flow_chain_batched`, then K4) `dispatch_pairs` at a time, and
+    at the end of the frames; each chunk restacks the
     previous chunk's last frame.  K4 normalises each image on its own, so
     the images do not depend on where the chain is cut.  A chunk's copy to
     the host is enqueued with its kernels, on a copy stream, and the chunk
     is written once the next one is dispatched.  device: where the flow
     runs, by default the current card, and every visible card where
-    `_dp_mesh` gives a mesh (each takes one sub-chain of a chunk,
+    `dp_mesh` gives a mesh (each takes one sub-chain of a chunk,
     `chain_shards`); raises without a card; "cpu" runs the plain
     versions.  `plain` as in calc_flow_batched (one device).  `metrics`
-    gets the stages `upload` (a frame), `flow` (a chunk's dispatch and the
-    enqueue of its copy), `download` (the wait for a chunk's BGR on the
-    host) and `write` (the calls of `write`), which do not nest, the
-    counters `dispatches` and `early_dispatches` (those the pixels made,
-    before `chunk_size` and the end of the frames), and on a card the
-    pinned pool's growth (`PipelineMetrics.add_pinned_growth`).  Returns
-    the number of pairs written."""
-    mesh = None if plain else _dp_mesh(device)
+    gets the stages `upload` (a frame's staging), `flow` (a chunk's
+    dispatch, after the send of its last group, and the enqueue of its
+    copy), `download` (the wait for a chunk's BGR on the host) and
+    `write` (the calls of `write`), which do not nest, the counters
+    `dispatches` and `early_dispatches` (those smaller than `chunk_size`,
+    before the end of the frames) and the stager's.  Returns the number
+    of pairs written."""
+    mesh = None if plain else dp_mesh(device)
     device = resolve_device(device)
-    budget = DISPATCH_PIXELS * (1 if mesh is None else mesh.devices.size)
+    cards = 1 if mesh is None else mesh.devices.size
     metrics = metrics or PipelineMetrics("visualize")
     streams = {}              # a copy stream per card that holds a shard
-    stamps, gray, pend, inflight = [], [], [], []
+    gray = DeviceStager(device, metrics)     # frame index -> frame on the device
+    stamps, pend, inflight = [], [], []
     written = 0
 
     def drain_one():
@@ -148,6 +138,7 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
 
     def flush(pend, early=False):
         with metrics.stage("flow"):
+            gray.send()
             chain = torch.stack([gray[pend[0] - 1]] + [gray[i] for i in pend])
             if mesh is not None:
                 shards = _bgr_chain_shards(
@@ -171,29 +162,28 @@ def visualize_frames(frames: Iterable[Tuple[float, object]],
         metrics.add("dispatches")
         metrics.add("early_dispatches", int(early))
         for i in pend:
-            gray[i - 1] = None     # pairs are consecutive: frame i-1 is done
+            del gray[i - 1]        # pairs are consecutive: frame i-1 is done
         finite = None if not validate.DEBUG_NANS else [f for _, f in shards]
         inflight.append((list(pend), parts, host, copied, finite))
         if len(inflight) > 1:
             drain_one()
 
-    metrics.pinned_baseline(device)
-    for pos, g in frames:
+    for i, (pos, g) in enumerate(frames):
         stamps.append(pos)
-        i = len(gray)
         with metrics.stage("upload"):
-            gray.append(upload(g, device))
-        if i >= 1:
-            pend.append(i)
-            full = len(pend) >= chunk_size
-            if full or len(pend) * gray[i].numel() >= budget:
-                flush(pend, early=not full)
-                pend = []
+            gray.put(i, g)
+        if i == 0:
+            per = dispatch_pairs(*g.shape, chunk_size, cards)
+            continue
+        pend.append(i)
+        if len(pend) >= per:
+            flush(pend, early=per < chunk_size)
+            pend = []
     if pend:
         flush(pend)
     while inflight:
         drain_one()
-    metrics.add_pinned_growth(device)
+    gray.finish()
     return written
 
 

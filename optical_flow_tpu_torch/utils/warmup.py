@@ -12,10 +12,11 @@ builds nothing and its peak device memory is known:
   * `warmup_extractor`: `_magnitude_sums` on `pair_chunk_for(gh, gw,
     device=)` pairs at the frame size `aspect_preserving_size` gives,
     sharded over every card where the extractor would shard it
-    (`pipeline/extractor.py:_dp_mesh`);
+    (`parallel/mesh.py:dp_mesh`);
   * `warmup_visualizer`: `calc_flow_bgr_chain_batched` on the
-    `(pair_chunk_for(h, w, device=) + 1, h, w)` frame stack, or under that
-    mesh `sharded_bgr_chain_step` on its `chain_shards`;
+    `(dispatch_pairs(h, w, pair_chunk_for(h, w, device=)) + 1, h, w)`
+    frame stack, or under that mesh `sharded_bgr_chain_step` on its
+    `chain_shards`;
   * `warmup_flow`: `calc_flow_batched` and the magnitude sums.
 
 Each returns what it launched: the chunk, the shape, the seconds of the
@@ -58,9 +59,9 @@ from optical_flow_tpu_torch.models.farneback.flow import (
     calc_flow_batched, calc_flow_bgr_chain_batched)
 from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
-from optical_flow_tpu_torch.parallel.mesh import chain_shards, sharded_bgr_chain_step
-from optical_flow_tpu_torch.pipeline.extractor import _dp_mesh, _magnitude_sums
-from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+from optical_flow_tpu_torch.parallel.mesh import chain_shards, dp_mesh, sharded_bgr_chain_step
+from optical_flow_tpu_torch.pipeline.extractor import _magnitude_sums
+from optical_flow_tpu_torch.pipeline.prefetch import dispatch_pairs, pair_chunk_for
 from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
 from optical_flow_tpu_torch.utils.config import ExtractorConfig, FarnebackConfig
 from optical_flow_tpu_torch.utils.device import resolve_device
@@ -119,7 +120,7 @@ def warmup_extractor(src_h: int, src_w: int,
     `_magnitude_sums` at the `pair_chunk_for` chunk `extract_video`
     sends, at the frame size its resize gives, sharded where the
     extractor shards it."""
-    mesh = _dp_mesh(device)
+    mesh = dp_mesh(device)
     device = resolve_device(device)
     if config.frame_width:
         gw, gh = aspect_preserving_size(src_h, src_w, config.frame_width)
@@ -140,13 +141,14 @@ def warmup_visualizer(src_h: int, src_w: int,
                       config: FarnebackConfig = FarnebackConfig(), *,
                       device=None) -> dict:
     """Launch the visualizer's device step for a source resolution once:
-    the chained flow + colorize on the largest frame stack
-    `visualize_frames` sends, `(pair_chunk_for(h, w) + 1, h, w)`, split
+    the chained flow + colorize on the frame stack `visualize_frames`
+    sends, `(dispatch_pairs(h, w, pair_chunk_for(h, w)) + 1, h, w)`, split
     into sub-chains where the visualizer splits it.  `chunk` is the pair
     count."""
-    mesh = _dp_mesh(device)
+    mesh = dp_mesh(device)
     device = resolve_device(device)
-    b = pair_chunk_for(src_h, src_w, device=device)
+    b = dispatch_pairs(src_h, src_w, pair_chunk_for(src_h, src_w, device=device),
+                       1 if mesh is None else mesh.devices.size)
     frames = torch.zeros((b + 1, src_h, src_w), dtype=torch.uint8, device=device)
 
     def step():

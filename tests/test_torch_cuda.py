@@ -809,18 +809,17 @@ def test_visualize_frames_dispatches_a_long_shot_by_pixels(dev, monkeypatch):
     dispatch's kernels queued behind about 10 ms of `torch.cuda._sleep`
     (so the frames' copies and pinned blocks wait on them): the images
     equal the shot's as one chunk to the bit, the counters are the
-    dispatches `DISPATCH_PIXELS` gives, and in a profile the first
+    dispatches `dispatch_pairs` gives, and in a profile the first
     dispatch's kernels start before the last frame's `Memcpy HtoD`."""
     from torch.profiler import ProfilerActivity, profile
     from optical_flow_tpu_torch.oracle.synthetic import translating_clip
-    from optical_flow_tpu_torch.pipeline import visualizer
-    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.pipeline import prefetch, visualizer
     from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
     h, w, pairs = 1080, 1920, 40
     seq = list(enumerate(translating_clip(h, w, [i % 97 - 48 for i in range(pairs + 1)])))
-    chunk = pair_chunk_for(h, w, device=dev)
-    per = -(-visualizer.DISPATCH_PIXELS // (h * w))
+    chunk = prefetch.pair_chunk_for(h, w, device=dev)
+    per = prefetch.dispatch_pairs(h, w, chunk)
     assert per < min(chunk, pairs)
 
     def run(**kw):
@@ -830,7 +829,7 @@ def test_visualize_frames_dispatches_a_long_shot_by_pixels(dev, monkeypatch):
         return np.stack(out)
 
     with monkeypatch.context() as mp:
-        mp.setattr(visualizer, "DISPATCH_PIXELS", chunk * h * w)
+        mp.setattr(prefetch, "DISPATCH_PIXELS", chunk * h * w)
         one = run()
     dispatch = visualizer.calc_flow_chain_batched
 
@@ -854,6 +853,38 @@ def test_visualize_frames_dispatches_a_long_shot_by_pixels(dev, monkeypatch):
     work = sorted(e.start_ns() for e in ops if not e.name().startswith(("Memcpy", "Memset")))
     assert len(copies) == pairs + 1
     assert work[0] < copies[-1]
+
+
+def test_visualize_frames_copies_a_1080p_frame_at_a_time(dev):
+    """A 1080p shot of 16 pairs through `visualize_frames`: each 2 MB
+    frame is past `GROUP_BYTES`, a group of its own, so the trace's
+    `Memcpy HtoD` are the counter `h2d_copies`, one a frame, and
+    `staged_bytes` the frames' bytes."""
+    from torch.profiler import ProfilerActivity, profile
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import visualizer
+    from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    h, w, n = 1080, 1920, 17
+    seq = list(enumerate(translating_clip(h, w, list(range(n)))))
+
+    def run(**kw):
+        return visualizer.visualize_frames(seq, lambda pos, bgr: None,
+                                           chunk_size=pair_chunk_for(h, w, device=dev),
+                                           device=dev, **kw)
+
+    run()
+    torch.cuda.synchronize()
+    m = PipelineMetrics("visualize")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert run(metrics=m) == n - 1
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    copies = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda and e.name().startswith("Memcpy HtoD")]
+    assert len(copies) == m.counters["h2d_copies"] == n == m.stages["upload"].count
+    assert m.counters["staged_bytes"] == n * h * w
 
 
 def _clip_w129():
@@ -900,7 +931,7 @@ def test_staging_is_safe_while_copies_are_queued(dev, monkeypatch):
     again before its copy ran would
     change the sums, which equal the default grouping's to the bit and
     the plain path's on the CPU within 1e-4 rel."""
-    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.pipeline import extractor, prefetch
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
     from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
@@ -911,15 +942,16 @@ def test_staging_is_safe_while_copies_are_queued(dev, monkeypatch):
 
     ref = run(device=dev)
     cpu = run(device="cpu")
-    group_buffer = extractor._group_buffer
+    put = prefetch.DeviceStager.put
 
-    def late_group_buffer(frame, device):
-        # ahead of this group's copy on the stream
-        torch.cuda._sleep(20_000_000)
-        return group_buffer(frame, device)
+    def late_put(self, key, frame):
+        if self._group is None:
+            # a new group's buffer: ahead of this group's copy on the stream
+            torch.cuda._sleep(20_000_000)
+        put(self, key, frame)
 
-    monkeypatch.setattr(extractor, "GROUP_BYTES", 4 * seq[0][1].nbytes)
-    monkeypatch.setattr(extractor, "_group_buffer", late_group_buffer)
+    monkeypatch.setattr(prefetch, "GROUP_BYTES", 4 * seq[0][1].nbytes)
+    monkeypatch.setattr(prefetch.DeviceStager, "put", late_put)
     m = PipelineMetrics("extract")
     got = run(device=dev, metrics=m)
     assert m.counters["h2d_copies"] >= len(seq) // 4
@@ -1307,21 +1339,22 @@ def test_launch_leaves_the_current_device(dev):
 
 def test_mesh_across_the_visible_cards(dev):
     """With two or more cards: the data axis over every card (the mesh
-    `_dp_mesh` builds), the extractor's and the visualizer's loops with no
+    `dp_mesh` builds), the extractor's and the visualizer's loops with no
     device named (sharded) against one named card, and the spatial axis
     over real cards (1 x n, and 2 x n/2 where n is even and at least 4),
     held as on one repeated card."""
     from optical_flow_tpu_torch.parallel import (HaloKernels, chain_shards, make_mesh,
                                                  sharded_bgr_chain_step, sharded_flow_step)
     from optical_flow_tpu_torch.parallel.halo import Blocks
+    from optical_flow_tpu_torch.parallel.mesh import dp_mesh
     from optical_flow_tpu_torch.pipeline import extractor, visualizer
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
 
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two or more CUDA cards")
-    extractor._dp_mesh.cache_clear()
-    mesh = extractor._dp_mesh()
+    dp_mesh.cache_clear()
+    mesh = dp_mesh()
     assert mesh is not None and mesh.shape == {"data": n, "spatial": 1}
     host = _rolled_chain(2 * n + 3, 72, 129)
     frames = torch.as_tensor(host).to(dev)

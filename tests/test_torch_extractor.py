@@ -29,7 +29,7 @@ from optical_flow_tpu_torch.oracle.synthetic import smooth_texture_pair, transla
 from optical_flow_tpu_torch.ops import host
 from optical_flow_tpu_torch.ops import resize
 from optical_flow_tpu_torch.parallel import corpus
-from optical_flow_tpu_torch.pipeline import extractor
+from optical_flow_tpu_torch.pipeline import extractor, prefetch
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
@@ -188,7 +188,7 @@ def test_extract_frames_equals_the_pairs(chunk, windows, group_frames, failed, c
     group sent."""
     seq = _sequence(12) if copies is None else _distinct(12)
     if group_frames is not None:
-        monkeypatch.setattr(extractor, "GROUP_BYTES", group_frames * seq[0][1].nbytes)
+        monkeypatch.setattr(prefetch, "GROUP_BYTES", group_frames * seq[0][1].nbytes)
     frames = dict(seq)
     if failed is not None:
         seq[failed] = (failed, None)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from optical_flow_tpu_torch.ops.resize import aspect_preserving_size
-from optical_flow_tpu_torch.pipeline import extractor
+from optical_flow_tpu_torch.pipeline import extractor, prefetch
 from optical_flow_tpu_torch.utils import metrics as metrics_mod
 from optical_flow_tpu_torch.utils.config import ExtractorConfig, FarnebackConfig
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -105,7 +105,7 @@ def test_one_frame_a_group_gives_the_references_sums(chunk, monkeypatch):
     several."""
     windows, frames = _clip(72, 128)
     nbytes = frames[0][1].nbytes
-    monkeypatch.setattr(extractor, "GROUP_BYTES", nbytes - 1)
+    monkeypatch.setattr(prefetch, "GROUP_BYTES", nbytes - 1)
     m = PipelineMetrics("extract")
     cfg = ExtractorConfig(frame_width=128, farneback=FarnebackConfig(
         **_config("extractor_w1920")["farneback"]))
@@ -157,7 +157,7 @@ def test_the_cell_runs_small_on_the_cpu(tmp_path, monkeypatch):
     cfg.update(name="tiny_ext", frame_height=72, frame_width=128, reference_block=64,
                pool_frames=24)
     tiny.write(root, "configs", "tiny_ext", cfg)
-    monkeypatch.setattr(extractor, "GROUP_BYTES", 72 * 128 - 1)
+    monkeypatch.setattr(prefetch, "GROUP_BYTES", 72 * 128 - 1)
     out = harness.run_cell(root, "tiny_ext.videos", SEED, float("inf"), True, device="cpu",
                            max_units=tiny.VIDEOS["check_among"])
     assert out["correct"], out["checks"]

@@ -33,7 +33,8 @@ from optical_flow_tpu_torch.models.farneback.flow import (calc_flow_batched,
 from optical_flow_tpu_torch.parallel import (chain_shards, make_mesh, shard_pairs,
                                              sharded_bgr_chain_step, sharded_bgr_step,
                                              sharded_extract_step, sharded_flow_step)
-from optical_flow_tpu_torch.pipeline import extractor, visualizer
+from optical_flow_tpu_torch.parallel import mesh as tmesh
+from optical_flow_tpu_torch.pipeline import extractor, prefetch, visualizer
 from optical_flow_tpu_torch.pipeline.extractor import magnitude_sums
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -200,24 +201,24 @@ def test_dp_mesh_rules(monkeypatch):
     """A mesh only with several cards, OFT_DISABLE_MESH unset and no device
     named (None, or "cuda" without an index)."""
     sentinel = object()
-    monkeypatch.setattr(extractor, "make_mesh", lambda n_spatial: sentinel)
+    monkeypatch.setattr(tmesh, "make_mesh", lambda n_spatial: sentinel)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.delenv("OFT_DISABLE_MESH", raising=False)
-    extractor._dp_mesh.cache_clear()
+    tmesh.dp_mesh.cache_clear()
     try:
-        assert extractor._dp_mesh() is sentinel
-        assert extractor._dp_mesh("cuda") is sentinel
-        assert extractor._dp_mesh("cuda:0") is None
-        assert extractor._dp_mesh("cpu") is None
-        extractor._dp_mesh.cache_clear()
+        assert tmesh.dp_mesh() is sentinel
+        assert tmesh.dp_mesh("cuda") is sentinel
+        assert tmesh.dp_mesh("cuda:0") is None
+        assert tmesh.dp_mesh("cpu") is None
+        tmesh.dp_mesh.cache_clear()
         monkeypatch.setenv("OFT_DISABLE_MESH", "1")
-        assert extractor._dp_mesh() is None
-        extractor._dp_mesh.cache_clear()
+        assert tmesh.dp_mesh() is None
+        tmesh.dp_mesh.cache_clear()
         monkeypatch.delenv("OFT_DISABLE_MESH")
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-        assert extractor._dp_mesh() is None
+        assert tmesh.dp_mesh() is None
     finally:
-        extractor._dp_mesh.cache_clear()
+        tmesh.dp_mesh.cache_clear()
 
 
 def test_extract_frames_through_a_mesh(batch, monkeypatch):
@@ -227,7 +228,7 @@ def test_extract_frames_through_a_mesh(batch, monkeypatch):
     windows = [(i, (i, i + 1)) for i in range(9)]
     cfg = ExtractorConfig()
     solo = extractor.extract_frames(frames, windows, cfg, chunk_size=4, device="cpu")
-    monkeypatch.setattr(extractor, "_dp_mesh", lambda device=None: _mesh(3))
+    monkeypatch.setattr(extractor, "dp_mesh", lambda device=None: _mesh(3))
     meshed = extractor.extract_frames(frames, windows, cfg, chunk_size=4, device="cpu")
     assert meshed == solo and len(solo) == 9
 
@@ -244,7 +245,7 @@ def test_visualize_frames_through_a_mesh(chain, monkeypatch):
         return n, out
 
     n_solo, solo = run()
-    monkeypatch.setattr(visualizer, "_dp_mesh", lambda device=None: _mesh(4))
+    monkeypatch.setattr(visualizer, "dp_mesh", lambda device=None: _mesh(4))
     n_mesh, meshed = run()
     assert n_mesh == n_solo == 9
     for (p, a), (q, b) in zip(meshed, solo):
@@ -257,7 +258,7 @@ def test_visualize_frames_pixel_budget_scales_with_the_mesh(chain, monkeypatch):
     mesh's cards: at 2 pairs a card, one device dispatches 9 pairs as
     2, 2, 2, 2, 1 and a 2-way mesh as 4, 4, 1, with the same BGR bytes."""
     frames = [(float(i), f) for i, f in enumerate(chain)]
-    monkeypatch.setattr(visualizer, "DISPATCH_PIXELS", 2 * chain[0].size)
+    monkeypatch.setattr(prefetch, "DISPATCH_PIXELS", 2 * chain[0].size)
     sizes = []
     split = visualizer.chain_shards
 
@@ -275,7 +276,7 @@ def test_visualize_frames_pixel_budget_scales_with_the_mesh(chain, monkeypatch):
         return np.stack(out), m.counters
 
     solo, solo_counts = run()
-    monkeypatch.setattr(visualizer, "_dp_mesh", lambda device=None: _mesh(2))
+    monkeypatch.setattr(visualizer, "dp_mesh", lambda device=None: _mesh(2))
     meshed, mesh_counts = run()
     assert (solo_counts["dispatches"], solo_counts["early_dispatches"]) == (5, 4)
     assert sizes == [4, 4, 1]
@@ -285,10 +286,11 @@ def test_visualize_frames_pixel_budget_scales_with_the_mesh(chain, monkeypatch):
 
 def test_warmers_through_a_mesh(monkeypatch):
     from optical_flow_tpu_torch.utils import warmup
-    monkeypatch.setattr(warmup, "_dp_mesh", lambda device=None: _mesh(2))
+    monkeypatch.setattr(warmup, "dp_mesh", lambda device=None: _mesh(2))
     kernels.reset_launches()
     ext = warmup.warmup_extractor(24, 32, ExtractorConfig(frame_width=32), device="cpu")
     vis = warmup.warmup_visualizer(24, 32, device="cpu")
     assert ext["shards"] == vis["shards"] == 2
+    assert vis["chunk"] == prefetch.dispatch_pairs(24, 32, prefetch.pair_chunk_for(24, 32), 2)
     assert vis["shape"] == [vis["chunk"] + 1, 24, 32]
     assert all(v == 0 for v in kernels.LAUNCHES.values())

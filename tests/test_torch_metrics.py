@@ -10,7 +10,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from optical_flow_tpu_torch.pipeline import extractor, visualizer
+from optical_flow_tpu_torch.pipeline import extractor, prefetch, visualizer
 from optical_flow_tpu_torch.utils import metrics as metrics_mod
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -194,7 +194,7 @@ def test_log_summary_names_the_frames_and_their_copies(monkeypatch):
     `h2d_copies`, one a group of staged frames sent."""
     lines = []
     monkeypatch.setattr(metrics_mod.logger, "info", lines.append)
-    monkeypatch.setattr(extractor, "GROUP_BYTES", 5 * 24 * 32)
+    monkeypatch.setattr(prefetch, "GROUP_BYTES", 5 * 24 * 32)
     m = PipelineMetrics("extract")
     _extract(5, m)
     m.log_summary()

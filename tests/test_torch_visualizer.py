@@ -28,7 +28,7 @@ from optical_flow_tpu.oracle.synthetic import (motion_boundary_pair,
                                                smooth_texture_pair,
                                                write_synthetic_video)
 from optical_flow_tpu_torch.models.farneback import flow as tflow
-from optical_flow_tpu_torch.pipeline import visualizer
+from optical_flow_tpu_torch.pipeline import prefetch, visualizer
 from optical_flow_tpu.utils.config import FarnebackConfig as JaxConfig
 from optical_flow_tpu_torch.utils.config import FarnebackConfig, VisualizerConfig
 from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -149,23 +149,28 @@ def test_visualize_frames_keeps_one_chunk_in_flight(monkeypatch):
     assert writes == [p for p, _ in _gray_sequence(8)[1:]]
 
 
-@pytest.mark.parametrize("pairs, chunk, budget_pairs, sizes, early", [
+DISPATCH_CASES = [
     (2, 10, 3, [2], 0),                  # shorter than one sub-chunk
     (3, 10, 3, [3], 1),                  # exactly one
     (4, 10, 3, [3, 1], 1),               # one more than one
     (11, 10, 3, [3, 3, 3, 2], 3),        # several, and a remainder
     (8, 10, 2.5, [3, 3, 2], 2),          # the budget between two pair counts
     (7, 2, 3, [2, 2, 2, 1], 0),          # chunk_size below the budget
-])
+    (12, 12, 12, [12], 0),               # a whole shot's 13 frames in one group
+]
+
+
+@pytest.mark.parametrize("pairs, chunk, budget_pairs, sizes, early", DISPATCH_CASES)
 def test_visualize_frames_dispatches_by_pixels(monkeypatch, pairs, chunk, budget_pairs,
                                                sizes, early):
     """Pending pairs are dispatched once they hold DISPATCH_PIXELS pixels,
     or at chunk_size where that comes first; the images still equal one
     chain over all frames, in order, and the counters count every dispatch
-    and those the pixels made."""
+    and those the pixels made.  The frames (2,240 B) share their groups,
+    so each dispatch sends one: fewer copies than frames."""
     seq = _gray_sequence(pairs + 1)
     h, w = seq[0][1].shape
-    monkeypatch.setattr(visualizer, "DISPATCH_PIXELS", int(budget_pairs * h * w))
+    monkeypatch.setattr(prefetch, "DISPATCH_PIXELS", int(budget_pairs * h * w))
     dispatched = []
     real = visualizer.calc_flow_chain_batched
 
@@ -181,9 +186,70 @@ def test_visualize_frames_dispatches_by_pixels(monkeypatch, pairs, chunk, budget
     assert n == pairs and dispatched == sizes
     assert m.counters["dispatches"] == len(sizes) == m.stages["flow"].count
     assert m.counters["early_dispatches"] == early
+    assert m.counters["h2d_copies"] == len(sizes) < pairs + 1
+    assert m.counters["staged_bytes"] == (pairs + 1) * h * w
     assert [p for p, _ in got] == [p for p, _ in seq[1:]]
     ref = tflow.calc_flow_bgr_chain_batched(np.stack([g for _, g in seq]), device="cpu").numpy()
     np.testing.assert_array_equal(np.stack([b for _, b in got]), ref)
+
+
+@pytest.mark.parametrize("pairs, chunk, budget_pairs, sizes, early", DISPATCH_CASES)
+def test_dispatch_pairs_gives_the_loops_dispatches(monkeypatch, pairs, chunk, budget_pairs,
+                                                   sizes, early):
+    """`dispatch_pairs` is the size of every dispatch of a shot but its
+    last, and a dispatch is early exactly when it is smaller than
+    chunk_size."""
+    h, w = 40, 56
+    monkeypatch.setattr(prefetch, "DISPATCH_PIXELS", int(budget_pairs * h * w))
+    per = prefetch.dispatch_pairs(h, w, chunk)
+    assert sizes == [per] * (pairs // per) + ([pairs % per] if pairs % per else [])
+    assert early == (pairs // per if per < chunk else 0)
+
+
+def test_dispatch_pairs_at_1080p():
+    assert prefetch.dispatch_pairs(1080, 1920, 80) == 16
+    assert prefetch.dispatch_pairs(1080, 1920, 80, cards=4) == 64
+    assert prefetch.dispatch_pairs(1080, 1920, 8) == 8
+    assert prefetch.dispatch_pairs(4320, 7680, 5) == 1
+    assert prefetch.dispatch_pairs(72, 129, 128) == 128
+
+
+@pytest.mark.parametrize("per_group, copies", [
+    (0.5, 7),                            # GROUP_BYTES below one frame: a frame a group
+    (1.5, 7),                            # between one frame and two
+    (2.5, 4),                            # two frames a group, the last one sent half full
+    (8, 1),                              # past the whole sequence: one group
+])
+def test_device_stager_copies_each_group_once(monkeypatch, per_group, copies):
+    """Frames (numpy arrays and CPU tensors) staged by key: one
+    `h2d_copies` a group sent, `staged_bytes` every frame's bytes (a
+    group never sent counts too), and each frame read back equal to its
+    host frame after the host frame changed; keys deleted stay deleted
+    when their group is sent."""
+    rng = np.random.default_rng(3)
+    host = [rng.integers(0, 256, (24, 32), dtype=np.uint8) for _ in range(7)]
+    frames = [f.copy() if k % 2 else torch.from_numpy(f.copy()) for k, f in enumerate(host)]
+    monkeypatch.setattr(prefetch, "GROUP_BYTES", int(per_group * host[0].nbytes))
+    m = PipelineMetrics("t")
+    staged = prefetch.DeviceStager(torch.device("cpu"), m)
+    for k, f in enumerate(frames):
+        staged.put(k, f)
+    del staged[0]
+    for f in frames:
+        f[:] = 0
+    staged.send()
+    staged.send()                        # no open group: no copy
+    staged.finish()
+    assert m.counters["h2d_copies"] == copies
+    assert m.counters["staged_bytes"] == 7 * host[0].nbytes
+    assert sorted(staged) == list(range(1, 7))
+    for k in range(1, 7):
+        np.testing.assert_array_equal(staged[k].numpy(), host[k])
+    unread = prefetch.DeviceStager(torch.device("cpu"), PipelineMetrics("t"))
+    unread.put(0, host[0])
+    unread.finish()
+    assert unread.metrics.counters.get("h2d_copies", 0) == int(per_group < 2)
+    assert unread.metrics.counters["staged_bytes"] == host[0].nbytes
 
 
 def test_visualize_shot_matches_jax(clip, tmp_path):

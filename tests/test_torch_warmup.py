@@ -31,7 +31,7 @@ import pytest
 from optical_flow_tpu_torch import kernels
 from optical_flow_tpu_torch.kernels import _build
 from optical_flow_tpu_torch.pipeline import extractor, visualizer
-from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
+from optical_flow_tpu_torch.pipeline.prefetch import dispatch_pairs, pair_chunk_for
 from optical_flow_tpu_torch.utils import validate, warmup
 from optical_flow_tpu_torch.utils.compile_cache import kernel_cache_dir
 from optical_flow_tpu_torch.utils.config import ExtractorConfig
@@ -157,7 +157,8 @@ def test_warmers_on_the_cpu_launch_no_kernel():
     ext = warmup.warmup_extractor(24, 32, device="cpu")
     assert ext["shape"] == [pair_chunk_for(96, 129), 96, 129]     # frame_width 129
     vis = warmup.warmup_visualizer(24, 32, device="cpu")
-    assert vis["chunk"] == pair_chunk_for(24, 32) and vis["shape"] == [vis["chunk"] + 1, 24, 32]
+    assert vis["chunk"] == dispatch_pairs(24, 32, pair_chunk_for(24, 32))
+    assert vis["shape"] == [vis["chunk"] + 1, 24, 32]
     flow = warmup.warmup_flow(24, 32, batch=3, device="cpu")
     assert flow["shape"] == [3, 24, 32]
     for info in (ext, vis, flow):
@@ -179,7 +180,8 @@ def test_warmup_cli_on_the_cpu(cache, tmp_path, capsys):
                         "--pack", str(tmp_path / "w.tgz")]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["cache"] == str(cache) and out["packed"] == len(_build.SOURCES)
-    assert out["warmed"][0]["visualizer"]["shape"] == [pair_chunk_for(24, 32) + 1, 24, 32]
+    assert out["warmed"][0]["visualizer"]["shape"] == [
+        dispatch_pairs(24, 32, pair_chunk_for(24, 32)) + 1, 24, 32]
     assert "nvcc_runs" not in out          # nothing is built for the CPU
 
 
