@@ -37,7 +37,8 @@ extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
 K7) and at the extractor's 72x129, the extractor's device loop
 `extract_frames` on in-memory 25 fps clips (`e2e_extractor_loop`: 4000
 frames at 72x129, 200 at 1080x1920; launches, the sums and the CSV line
-against the plain path's, FUSE_POLYEXP's sums), the visualizer's device loop
+against the plain path's, FUSE_POLYEXP's sums, the 72x129 chunks' captured
+dispatch replayed), the visualizer's device loop
 (`pipeline/visualizer.py:visualize_frames`: chained pyramid, K4 colorize,
 download) on 17 frames at 1080x1920 fed from memory, the Gaussian window
 (flags 256), the seeded entry (flags 4, `calc_flow` and
@@ -1654,7 +1655,10 @@ def e2e_extractor_loop_phase(name: str, h: int, w: int, n_frames: int, cfg,
     chunks of `pair_chunk_for(h, w)` pairs: its launches, its sums held
     to the plain path (1e-4 rel) and its CSV line equal to the plain
     path's, and with FUSE_POLYEXP its sums equal to the switch-off sums
-    (every level on K7).  The cells time this loop; this phase checks it."""
+    (every level on K7); where `extractor.graph_engaged` takes its chunks
+    (72x129), a captured dispatch replayed at least once in each kernel
+    run, and at 1080x1920 none.  The cells time this loop; this phase
+    checks it."""
     import torch
     from optical_flow_tpu_torch.io.sidecar import mag_csv_line
     from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
@@ -1663,6 +1667,7 @@ def e2e_extractor_loop_phase(name: str, h: int, w: int, n_frames: int, cfg,
     from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.pipeline.prefetch import pair_chunk_for
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
 
     fps = 25.0
     config = ExtractorConfig(farneback=cfg)
@@ -1674,12 +1679,20 @@ def e2e_extractor_loop_phase(name: str, h: int, w: int, n_frames: int, cfg,
     dxs = [amp - abs(amp - f % (2 * amp)) for f in needed]
     seq = list(zip(needed, translating_clip(h, w, dxs)))
     chunk = pair_chunk_for(h, w, device=dev)
+    graphed = extractor.graph_engaged(dev.type, chunk, h, w, plain=False, mesh=None,
+                                      nan_check=False)
+    replays = []
 
     def run(plain: bool = False) -> dict:
         reset_launches()
+        m = PipelineMetrics("extract")
         out = extractor.extract_frames(seq, todo, config, chunk_size=chunk,
-                                       device=dev, plain=plain)
+                                       device=dev, plain=plain, metrics=m)
         torch.cuda.synchronize()
+        if not plain:
+            replays.append(m.counters["graph_replays"])
+            require(replays[-1] >= 1 if graphed else replays[-1] == 0,
+                    f"{name}: {replays[-1]} graph replays, graphed={graphed}")
         return out
 
     def csv_line(results) -> str:
@@ -1717,7 +1730,8 @@ def e2e_extractor_loop_phase(name: str, h: int, w: int, n_frames: int, cfg,
             f"{name}: FUSE_POLYEXP launches {k7_launches}")
     emit(name, h=h, w=w, frames=n_frames, frames_uploaded=len(seq),
          windows=len(todo), chunk=chunk, launches=launches,
-         fuse_polyexp_launches=k7_launches, sums_max_rel_err_vs_plain=rel,
+         fuse_polyexp_launches=k7_launches, graph_replays=replays,
+         sums_max_rel_err_vs_plain=rel,
          csv_equals_plain=True, fuse_polyexp_sums_equal=True,
          csv_start_end=line.split("\t")[:2], card=power)
 

@@ -23,10 +23,16 @@ package's Pallas kernels; X1 and X2 the glue it leaves to XLA's fusions.
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; nothing falls back from one to the other.
 `LAUNCHES` counts kernel launches (never plain-version calls), so that a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels.  A table the
+wrappers make once and keep on the device for their launches to read is
+cached by `device_cache`, which hands it also to an open
+`hold_device_tables` (a captured CUDA graph's launches read it at every
+replay, whatever the cache has evicted since).
 """
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -41,6 +47,39 @@ MAX_SMEM = 227 * 1024
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_HELD = threading.local()
+
+
+def device_cache(maxsize):
+    """`functools.lru_cache(maxsize)` for a function that returns device
+    tables a launch reads by address; while `hold_device_tables` is open
+    on the calling thread, each result also goes into its list."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            out = cached(*args)
+            held = getattr(_HELD, "tables", None)
+            if held is not None:
+                held.append(out)
+            return out
+        call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def hold_device_tables():
+    """A list of every table a `device_cache` returns on this thread while
+    the block runs: whoever keeps the list keeps the tables' memory."""
+    held = _HELD.tables = []
+    try:
+        yield held
+    finally:
+        _HELD.tables = None
 
 
 def reset_launches() -> None:

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, output, raise_on_error,
-                                            sm_count)
+                                            device_cache, on_cuda, output,
+                                            raise_on_error, sm_count)
 from optical_flow_tpu_torch.models.farneback import core
 
 _STRIP = 32         # output columns of a strip block, SW in blur_solve.cu
@@ -93,7 +93,7 @@ def _tile():
     return f
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def window_taps(winsize: int, gaussian: bool, device: torch.device) -> torch.Tensor:
     """The window's 2 * (winsize // 2) + 1 taps on `device`: ones for the
     box, `core.gaussian_window_kernel` for the Gaussian (also K1's)."""

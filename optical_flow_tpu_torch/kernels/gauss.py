@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, output, raise_on_error)
+                                            device_cache, on_cuda, output,
+                                            raise_on_error)
 from optical_flow_tpu_torch.models.farneback import core
 
 _ROWS = (32, 16)          # block rows the kernel takes, preferred first
@@ -44,7 +45,7 @@ def _kernel():
     return f
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _taps(taps: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(taps, dtype=torch.float32).to(device)
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, raise_on_error)
+                                            device_cache, on_cuda, raise_on_error)
 from optical_flow_tpu_torch.models.farneback import core
 from optical_flow_tpu_torch.ops.resize import _coeffs_f32
 
@@ -96,7 +96,7 @@ def _tile(ntaps: int, h: int, w: int, out_h: int, out_w: int, esize: int):
     return None if best is None else best[1]
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _tables(h: int, w: int, out_h: int, out_w: int, device: torch.device):
     """The `_coeffs_f32` index and weight tables of a level on the device."""
     return tuple(torch.as_tensor(a, device=device)

@@ -49,8 +49,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.kernels import (LAUNCHES, _build, on_cuda,
-                                            raise_on_error)
+from optical_flow_tpu_torch.kernels import (LAUNCHES, _build, device_cache,
+                                            on_cuda, raise_on_error)
 from optical_flow_tpu_torch.ops import resize
 
 @functools.lru_cache(maxsize=None)
@@ -108,7 +108,7 @@ def _to_table(idx: np.ndarray, wt: np.ndarray, device: torch.device) -> Table:
                  lo, hi, tuple(spans), torch.device(device), (*idx.shape, tuple(spans)))
 
 
-@functools.lru_cache(maxsize=512)
+@device_cache(512)
 def _table(kind: str, s_len: int, d_len: int, device: torch.device) -> Table:
     """An axis's table on `device`, made once per (kind, lengths, device):
     "bilinear", "area" or "unit" (d_len == s_len)."""
@@ -121,7 +121,7 @@ def _table(kind: str, s_len: int, d_len: int, device: torch.device) -> Table:
     return _to_table(idx, wt, device)
 
 
-@functools.lru_cache(maxsize=512)
+@device_cache(512)
 def _row_block_table(s_len: int, d_len: int, a: int, b: int, lo: int,
                      device: torch.device) -> Table:
     """Output rows [a, b) of the (s_len -> d_len) bilinear table, their

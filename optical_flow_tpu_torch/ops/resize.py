@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from optical_flow_tpu_torch.kernels import device_cache
+
 
 @functools.lru_cache(maxsize=256)
 def _coeffs_f32(s_len: int, d_len: int):
@@ -80,7 +82,7 @@ def resize_bilinear_f32(src: torch.Tensor, dw: int, dh: int) -> torch.Tensor:
     return bilinear_rows(src, dw, *coeff_tensors(sh, dh, src.device))
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(256)
 def coeff_tensors(s_len: int, d_len: int, device: torch.device):
     """`_coeffs_f32`'s (s0, s1, t) on `device`, int64 indices: made once
     per (lengths, device), because a pageable host-to-device copy waits
@@ -157,7 +159,7 @@ def resize_u8_cv(src: torch.Tensor, dw: int, dh: int,
     return ((acc + 2) >> 2).clamp(0, 255).to(torch.uint8)
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(256)
 def _u8_coeff_tensors(s_len: int, d_len: int, device: torch.device):
     """`_coeffs_u8`'s (s0, s1, a0, a1) on `device`, int64 indices and
     int32 weights, made once per (lengths, device) as `coeff_tensors`."""
@@ -220,7 +222,7 @@ def _area_taps(s_len: int, d_len: int):
     return idx, wt
 
 
-@functools.lru_cache(maxsize=128)
+@device_cache(128)
 def _area_tensors(s_len: int, d_len: int, device: torch.device):
     """`_area_taps` on `device`, made once per (lengths, device)."""
     idx, wt = _area_taps(s_len, d_len)

@@ -25,7 +25,10 @@ which also resize it to `frame_width` and convert it to gray
 (`ops/host.py`); `extract_frames` stages it to the card
 (`prefetch.DeviceStager`: pinned group buffers, one copy a group) and
 sends the window pairs to the card `pair_chunk_for` at a time, two
-chunks in flight, one host sync per chunk for its sums.  On a host with
+chunks in flight, one host sync per chunk for its sums.  A chunk of a
+shape seen before, small enough for its launches' host work to matter
+(`graph_engaged`), replays a captured CUDA graph of its dispatch
+(`ChunkGraphs`) instead of launching its kernels one by one.  On a host with
 more than one visible card, where the caller names no device (None, or
 "cuda" without an index), a chunk is split over every card as the JAX
 package splits it over the local chips (`parallel/mesh.py:dp_mesh`,
@@ -35,6 +38,7 @@ package splits it over the local chips (`parallel/mesh.py:dp_mesh`,
 from __future__ import annotations
 
 import os
+import threading
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +47,7 @@ import torch
 from optical_flow_tpu_torch.io.sidecar import (DoneSentinel, ShotProgress,
                                                write_mag_to_csv)
 from optical_flow_tpu_torch.io.video import VFRStreamError, VideoReader
+from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, hold_device_tables
 from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
 from optical_flow_tpu_torch.ops import polar
@@ -141,6 +146,124 @@ def _magnitude_sums(prev_batch, next_batch, config: ExtractorConfig, *, device,
     return sums, (torch.isfinite(flow).all() if nan_check else None)
 
 
+# Pixels (pairs x H x W) of the chunk dispatches a process keeps captured,
+# all shapes together; a chunk past what is left runs eagerly.  A graph's
+# private pool on an H100 is 79 bytes a pixel at 1080p and up to 142 for a
+# 36-pair 72x129 chunk, whose pool rounds up to whole segments (PERF.md):
+# at most some 1.2 GB of pools.  The 16 shapes of a mix of 7-10 s clips
+# at 72x129 and 97x129 took 5.5 M pixels of it (0.64 GB); all 24 pair
+# counts of such clips at both heights take 8.0 M.
+GRAPH_PIXELS = 8 << 20
+
+
+def graph_engaged(device_type: str, b: int, h: int, w: int, *, plain: bool,
+                  mesh: Optional[Mesh], nan_check: bool) -> bool:
+    """Whether a chunk of b (h, w) pairs may replay a captured CUDA graph
+    of its dispatch: the kernels on one card (not `plain`, no mesh, no
+    NaN check, which reads the flow the graph keeps inside), and at most
+    `GRAPH_PIXELS` pixels (a 36-pair 72x129 chunk: 0.7 ms to launch its
+    11 kernels, 20 us to replay them, on an H100's host).  A 1080p clip's
+    kernels take tens of ms, which hide their launches."""
+    return (device_type == "cuda" and not plain and mesh is None and not nan_check
+            and b * h * w <= GRAPH_PIXELS)
+
+
+class ChunkGraphs:
+    """Captured chunk dispatches by key, in front of the eager code.  A
+    key's first sight runs eagerly; its second sight captures the
+    dispatch (`capture(key)` gives a callable (prev, nxt) -> sums) and
+    replays it, if its pixels fit in what is left of `pixels`, and later
+    sights replay.  So a one-off shape, such as a video's last partial
+    chunk, stays eager.  A graph is kept for the process: no shape is
+    captured twice, and one past the budget stays eager.  A graph's
+    static buffers are written and replayed under one lock, on the
+    caller's current stream."""
+
+    def __init__(self, capture: Callable, pixels: int = GRAPH_PIXELS):
+        self._capture = capture
+        self._left = pixels
+        self._graphs = {}
+        self._seen = set()
+        self._lock = threading.Lock()
+
+    def sums(self, key, pixels: int, prev, nxt):
+        """The chunk's sums from the graph of `key`, a chunk of `pixels`,
+        or None where this dispatch is to run eagerly."""
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                if key not in self._seen or pixels > self._left:
+                    self._seen.add(key)
+                    return None
+                graph = self._graphs[key] = self._capture(key)
+                self._left -= pixels
+            return graph(prev, nxt)
+
+
+class _ChunkGraph:
+    """The one-device dispatch of a chunk (`_flow_and_sums` on the halves
+    of a static (2B, H, W) batch), captured once, after one eager run on
+    the batch that makes every device table its launches read (their
+    caches may have evicted them since the key's first sight); the graph
+    keeps those tables (`kernels.hold_device_tables`), and neither run
+    counts in `kernels.LAUNCHES`.  A call stacks the chunk's frames into
+    the batch, replays, adds the captured launches to `LAUNCHES`, and
+    returns a copy of the sums made on the stream after the replay: the
+    graph's own output is rewritten by the next replay while these sums
+    are still in flight."""
+
+    def __init__(self, key):
+        device, b, h, w, dtype, config, _fused = key
+        self.batch = torch.zeros((2 * b, h, w), dtype=dtype, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        _flow_and_sums(self.batch[:b], self.batch[b:], config, device=device, plain=False)
+        warm = dict(LAUNCHES)
+        # thread-local: other threads (another video's loop) may use the
+        # card while this one captures
+        with hold_device_tables() as self.tables, torch.cuda.device(device), \
+                torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = _flow_and_sums(self.batch[:b], self.batch[b:], config,
+                                      device=device, plain=False)[1]
+        self.launches = {k: n - warm[k] for k, n in LAUNCHES.items() if n != warm[k]}
+        LAUNCHES.update(before)
+
+    def __call__(self, prev, nxt) -> torch.Tensor:
+        b = len(prev)
+        torch.stack(prev, out=self.batch[:b])
+        torch.stack(nxt, out=self.batch[b:])
+        self.graph.replay()
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+        return self.out.clone()
+
+
+_GRAPHS = ChunkGraphs(_ChunkGraph)
+
+
+def _chunk_sums(prev: Sequence[torch.Tensor], nxt: Sequence[torch.Tensor],
+                config: ExtractorConfig, *, device: torch.device, plain: bool,
+                nan_check: bool, mesh: Optional[Mesh]):
+    """A chunk's (sums, finite, replayed) from its pairs' (H, W) frames on
+    the device: the captured graph of its shape (`ChunkGraphs`), keyed by
+    (device, B, H, W, dtype, the Farnebäck config and `FUSE_POLYEXP`),
+    where `graph_engaged` and the key was seen before, else the frames'
+    stacks through `_magnitude_sums`.  Equal sums either way: the same
+    kernels on the same inputs."""
+    f = prev[0]
+    if graph_engaged(device.type, len(prev), *f.shape, plain=plain, mesh=mesh,
+                     nan_check=nan_check):
+        key = (f.device, len(prev), *f.shape, f.dtype, config.farneback,
+               fused_iterate.FUSE_POLYEXP)
+        sums = _GRAPHS.sums(key, len(prev) * f.numel(), prev, nxt)
+        if sums is not None:
+            return sums, None, True
+    sums, finite = _magnitude_sums(torch.stack(prev), torch.stack(nxt), config,
+                                   device=device, plain=plain, nan_check=nan_check,
+                                   mesh=mesh)
+    return sums, finite, False
+
+
 def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
                    windows: Sequence[Window], config: ExtractorConfig, *,
                    chunk_size: int, device=None, plain: bool = False,
@@ -157,7 +280,8 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     sent at the latest when the chunk it feeds is flushed; a chunk of
     `chunk_size` pairs goes to the device as one batch, two chunks stay
     in flight, and a chunk's sums come back with one host sync, each then
-    passed to on_result(index, start, end, sum).  Frames below the
+    passed to on_result(index, start, end, sum); a chunk of a shape seen
+    before replays its captured dispatch (`_chunk_sums`).  Frames below the
     earliest start still needed are dropped.  device: by default the
     current card, and every visible card where `dp_mesh` gives a mesh;
     "cpu" runs the plain versions.  `plain` as in calc_flow_batched (one
@@ -167,8 +291,9 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     read with its sums; a non-finite chunk raises FloatingPointError.
     `metrics` gets the stages `upload` (a frame's staging), `flow` (a
     chunk's dispatch, after the send of its last group) and `drain` (the
-    wait for a chunk's sums and their hand-off), which do not nest, and
-    the stager's counters."""
+    wait for a chunk's sums and their hand-off), which do not nest, the
+    counters `dispatches` (one a chunk) and `graph_replays` (those a
+    captured graph served), and the stager's counters."""
     mesh = None if plain else dp_mesh(device)
     device = resolve_device(device)
     metrics = metrics or PipelineMetrics("extract")
@@ -194,14 +319,16 @@ def extract_frames(frames: Iterable[Tuple[int, Optional[np.ndarray]]],
     def flush(chunk):
         with metrics.stage("flow"):
             live.send()
-            prev = torch.stack([live[w[0]] for _, w in chunk])
-            nxt = torch.stack([live[w[1]] for _, w in chunk])
-            sums, finite = _magnitude_sums(prev, nxt, config, device=device,
-                                           plain=plain, nan_check=validate.DEBUG_NANS,
-                                           mesh=mesh)
+            prev = [live[w[0]] for _, w in chunk]
+            nxt = [live[w[1]] for _, w in chunk]
+            sums, finite, replayed = _chunk_sums(prev, nxt, config, device=device,
+                                                 plain=plain, nan_check=validate.DEBUG_NANS,
+                                                 mesh=mesh)
         if validate_sample is not None and not validate_sample:
             validate_sample.append((prev[0].cpu().numpy(), nxt[0].cpu().numpy()))
         metrics.add("frame_pairs", len(chunk))
+        metrics.add("dispatches")
+        metrics.add("graph_replays", int(replayed))
         inflight.append((chunk, sums, finite))
         # two chunks in flight; older results are complete by now, so
         # draining them checkpoints without a stall

@@ -115,7 +115,7 @@ class PipelineMetrics:
         for k, v in sorted(self.stages.items()):
             parts.append(f"{k}={v.seconds:.2f}s/{v.count}x")
         for k in ("frames_decoded", "h2d_copies", "staged_bytes", "dispatches",
-                  "early_dispatches", *PINNED_STATS):
+                  "graph_replays", "early_dispatches", *PINNED_STATS):
             if k in self.counters:
                 parts.append(f"{k}={self.counters[k]}")
         upload = self.stages.get("upload")

@@ -1007,6 +1007,181 @@ def test_extract_frames_at_1080p(dev):
         assert abs(v - ref[i][2]) <= 1e-4 * abs(ref[i][2])
 
 
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """The extractor's cache of captured dispatches, empty for one test."""
+    from optical_flow_tpu_torch.pipeline import extractor
+    graphs = extractor.ChunkGraphs(extractor._ChunkGraph)
+    monkeypatch.setattr(extractor, "_GRAPHS", graphs)
+    return graphs
+
+
+def _clip_moving(h, w, n_frames, speed):
+    """A 25 fps clip of n_frames at h x w, its windows at the default step
+    and window, each frame a crop of one texture moving `speed` px a frame
+    (a triangle wave): (frames, windows)."""
+    from optical_flow_tpu_torch.oracle.synthetic import translating_clip
+    from optical_flow_tpu_torch.pipeline import extractor
+
+    windows, _ = extractor._window_schedule(n_frames, 25.0, 300, 300)
+    needed = sorted({f for win in windows for f in win})
+    amp = min(48, w // 2 - 1)
+    dxs = [amp - abs(amp - (speed * f) % (2 * amp)) for f in needed]
+    return list(zip(needed, translating_clip(h, w, dxs))), list(enumerate(windows))
+
+
+def _extract_counted(seq, todo, chunk, dev):
+    """extract_frames on the card: (sums, its launches, its counters)."""
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    kernels.reset_launches()
+    m = PipelineMetrics("extract")
+    got = extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=chunk,
+                                   device=dev, metrics=m)
+    torch.cuda.synchronize()
+    return got, dict(kernels.LAUNCHES), m.counters
+
+
+def test_replayed_chunks_equal_the_eager_dispatch(dev, fresh_graphs, monkeypatch):
+    """Three 36-window clips at 72x129, each moving at its own speed, and
+    a 40 s video in chunks of 16 (two chunks in flight, a partial last
+    one): the first clip runs eagerly, the second captures its dispatch
+    and replays it, the third replays; the video's first full chunk of 16
+    runs eagerly, the next captures, the rest replay, its last chunk of 15
+    stays eager.  Every sum equals the eager dispatch's to the bit, and
+    `kernels.LAUNCHES` counts the kernels the replays ran as the eager
+    calls count theirs.  Sums handed back from the graph's own output,
+    not copied, would carry the next replay's."""
+    from optical_flow_tpu_torch.pipeline import extractor
+
+    runs = [(_clip_moving(72, 129, 250, speed), 128) for speed in (1, 2, 3)]
+    runs.append((_clip_moving(72, 129, 1000, 2), 16))
+    with monkeypatch.context() as mp:
+        mp.setattr(extractor, "graph_engaged", lambda *a, **k: False)
+        eager = [_extract_counted(seq, todo, chunk, dev) for (seq, todo), chunk in runs]
+    assert not fresh_graphs._graphs
+    replays = []
+    for ((seq, todo), chunk), (want, launches, _) in zip(runs, eager):
+        got, got_launches, counters = _extract_counted(seq, todo, chunk, dev)
+        assert got == want and sorted(got) == list(range(len(todo)))
+        assert got_launches == launches
+        assert counters["dispatches"] == -(-len(todo) // chunk)
+        replays.append(counters["graph_replays"])
+    assert len(runs[3][0][1]) == 143            # 8 chunks of 16 and one of 15
+    assert replays == [0, 1, 1, 7]
+
+
+def test_a_replayed_clip_profiles_as_an_eager_one(dev, fresh_graphs):
+    """In a profile, a replayed clip's dispatch shows the same kernels
+    under their own names, as many times, as the eager one's: the
+    per-kernel device times and the roofline read them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seq, todo = _clip_moving(72, 129, 250, 1)
+
+    def kernel_names():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, counters = _extract_counted(seq, todo, 128, dev)
+        cuda = torch.autograd.DeviceType.CUDA
+        names = sorted(e.name() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == cuda
+                       and not e.name().startswith(("Memcpy", "Memset")))
+        return names, counters["graph_replays"]
+
+    eager = kernel_names()
+    _extract_counted(seq, todo, 128, dev)            # the capture
+    replayed = kernel_names()
+    assert eager[1] == 0 and replayed[1] == 1
+    assert any("update_blur" in n for n in eager[0])
+    assert replayed[0] == eager[0]
+
+
+def test_a_1080p_clip_is_never_graphed(dev, fresh_graphs):
+    """A 36-pair chunk of 1080p frames is past `GRAPH_PIXELS`: its
+    dispatch runs eagerly at every sight, and the cache never sees it."""
+    seq, todo = _clip_moving(1080, 1920, 250, 1)
+    for _ in range(3):
+        _, launches, counters = _extract_counted(seq, todo, 80, dev)
+        assert counters["dispatches"] == 1 and counters["graph_replays"] == 0
+        assert launches["K1"] == 12
+    assert not fresh_graphs._graphs and not fresh_graphs._seen
+
+
+def _clear_device_tables():
+    """Empty every cache of device tables the kernels' wrappers keep."""
+    from optical_flow_tpu_torch.kernels import blur_solve, gauss, gauss_resize, resample
+    from optical_flow_tpu_torch.ops import resize
+    for cached in (gauss_resize._tables, resample._table, resample._row_block_table,
+                   blur_solve.window_taps, gauss._taps, resize.coeff_tensors,
+                   resize._u8_coeff_tensors, resize._area_tensors):
+        cached.cache_clear()
+
+
+def test_a_graph_keeps_its_device_tables(dev, fresh_graphs, monkeypatch):
+    """The tables a captured dispatch reads (K3's, X1's) are the graph's
+    own: with the caches emptied between the first sight and the capture,
+    and again before the replay, their freed blocks handed out and
+    zeroed, the replayed sums equal the eager dispatch's to the bit."""
+    from optical_flow_tpu_torch.pipeline import extractor
+
+    seq, todo = _clip_moving(72, 129, 250, 2)
+    with monkeypatch.context() as mp:
+        mp.setattr(extractor, "graph_engaged", lambda *a, **k: False)
+        want, launches, _ = _extract_counted(seq, todo, 128, dev)
+    sights = []
+    for _ in range(3):
+        got, got_launches, counters = _extract_counted(seq, todo, 128, dev)
+        sights.append((got == want, got_launches == launches, counters["graph_replays"]))
+        _clear_device_tables()
+        junk = [torch.zeros(n, dtype=torch.int32, device=dev)
+                for n in (16, 64, 129, 256, 1024, 4096, 16384) for _ in range(500)]
+        del junk
+    assert sights == [(True, True, 0), (True, True, 1), (True, True, 1)]
+
+
+def test_two_loops_share_the_graphs(dev, fresh_graphs, monkeypatch):
+    """Two threads each run `extract_frames` over three 72x129 clips at
+    once, as `run_corpus` does with `video_workers=2`: one capture serves
+    both, and every sum equals the one-thread eager dispatch's to the
+    bit."""
+    import threading
+    from optical_flow_tpu_torch.pipeline import extractor
+    from optical_flow_tpu_torch.utils.config import ExtractorConfig
+    from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
+
+    clips = [[_clip_moving(72, 129, 250, speed) for speed in speeds]
+             for speeds in ((1, 2, 3), (4, 5, 1))]
+    with monkeypatch.context() as mp:
+        mp.setattr(extractor, "graph_engaged", lambda *a, **k: False)
+        want = [[_extract_counted(seq, todo, 128, dev)[0] for seq, todo in loop]
+                for loop in clips]
+    got, replays, errors = [None, None], [0, 0], []
+
+    def loop(i):
+        try:
+            got[i] = []
+            for seq, todo in clips[i]:
+                m = PipelineMetrics("extract")
+                got[i].append(extractor.extract_frames(seq, todo, ExtractorConfig(),
+                                                       chunk_size=128, device=dev,
+                                                       metrics=m))
+                replays[i] += m.counters["graph_replays"]
+        except Exception as e:     # noqa: BLE001 - raised below, in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=loop, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert got == want
+    assert len(fresh_graphs._graphs) == 1 and sum(replays) == 5
+
+
 STRIP_SHAPES = [(1, 1), (2, 2), (31, 33), (33, 31), (65, 65), (1, 65), (65, 2)]
 STRIP_WINDOWS = [(1, False), (3, False), (3, True), (15, False), (15, True),
                  (31, False), (31, True), (61, False), (61, True)]

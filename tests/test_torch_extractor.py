@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from optical_flow_tpu.io import sidecar as jsidecar
 from optical_flow_tpu.oracle.synthetic import write_synthetic_video
@@ -206,8 +207,121 @@ def test_extract_frames_equals_the_pairs(chunk, windows, group_frames, failed, c
     assert res == {i: (s, e, v) for (i, (s, e)), v in zip(windows, ref)}
     assert got == [(i, s, e, v) for (i, (s, e)), v in zip(windows, ref)]
     assert m.stages["upload"].count == m.counters["frames_decoded"] == (failed or 12)
+    # the CPU runs every chunk eagerly: one dispatch a chunk, no replay
+    assert m.counters["dispatches"] == -(-len(windows) // chunk)
+    assert m.counters["graph_replays"] == 0
     if copies is not None:
         assert m.counters["h2d_copies"] == copies
+
+
+MESH = object()      # any mesh: the rule reads only whether there is one
+PIXELS = extractor.GRAPH_PIXELS
+
+
+@pytest.mark.parametrize("device,b,h,w,plain,mesh,nan_check,engaged", [
+    pytest.param("cuda", 36, 72, 129, False, None, False, True, id="corpus_clip"),
+    pytest.param("cuda", 128, 72, 129, False, None, False, True, id="full_chunk_w129"),
+    pytest.param("cuda", PIXELS // (256 * 256), 256, 256, False, None, False, True,
+                 id="at_the_budget"),
+    pytest.param("cuda", PIXELS // (256 * 256) + 1, 256, 256, False, None, False, False,
+                 id="past_the_budget"),
+    pytest.param("cuda", 36, 1080, 1920, False, None, False, False, id="clip_1080p"),
+    pytest.param("cuda", 16, 1080, 1920, False, None, False, False,
+                 id="visualizer_dispatch_1080p"),
+    pytest.param("cpu", 36, 72, 129, False, None, False, False, id="cpu"),
+    pytest.param("cuda", 36, 72, 129, True, None, False, False, id="plain"),
+    pytest.param("cuda", 36, 72, 129, False, MESH, False, False, id="mesh"),
+    pytest.param("cuda", 36, 72, 129, False, None, True, False, id="nan_check"),
+])
+def test_graph_engagement_reads_the_chunk(device, b, h, w, plain, mesh, nan_check,
+                                          engaged):
+    """A chunk replays a captured graph only on a card, with the kernels
+    (not `plain`), on one device, without the NaN check, and up to
+    `GRAPH_PIXELS` pixels: a Kinetics clip at 72x129 and a full chunk
+    there are graphed, a 1080p clip of 36 pairs is not."""
+    assert b * h * w <= PIXELS or not engaged
+    assert extractor.graph_engaged(device, b, h, w, plain=plain, mesh=mesh,
+                                   nan_check=nan_check) is engaged
+
+
+def _sights(keys, pixels, size=1):
+    """Each key's dispatch, a chunk of `size` pixels, through a
+    ChunkGraphs of `pixels` whose capture is a fake: (per sight None where
+    it ran eagerly, else (the key, which capture served it), the keys
+    captured)."""
+    captured = []
+
+    def capture(key):
+        captured.append(key)
+        n = len(captured)
+        return lambda prev, nxt: (key, n, prev, nxt)
+
+    graphs = extractor.ChunkGraphs(capture, pixels=pixels)
+    got = [graphs.sums(k, size, [k], [k]) for k in keys]
+    return [None if g is None else g[:2] for g in got], captured
+
+
+@pytest.mark.parametrize("keys,pixels,size,want,captured", [
+    # eager, captured and replayed, replayed
+    pytest.param("aaa", 4, 1, [None, ("a", 1), ("a", 1)], ["a"], id="first_second_third"),
+    # one-off keys stay eager; each key is captured once
+    pytest.param("abcab", 4, 1, [None, None, None, ("a", 1), ("b", 2)], ["a", "b"],
+                 id="one_offs_stay_eager"),
+    # interleaved keys: each captured once and kept, never captured again
+    pytest.param("abcabcabc", 3, 1,
+                 [None, None, None, ("a", 1), ("b", 2), ("c", 3), ("a", 1), ("b", 2),
+                  ("c", 3)],
+                 ["a", "b", "c"], id="interleaved_keys_kept"),
+    # past the budget a key stays eager at every sight; the kept ones replay
+    pytest.param("aabbccab", 2, 1,
+                 [None, ("a", 1), None, ("b", 2), None, None, ("a", 1), ("b", 2)],
+                 ["a", "b"], id="past_the_budget_stays_eager"),
+    # a chunk larger than the whole budget is never captured
+    pytest.param("aaa", 2, 3, [None, None, None], [], id="larger_than_the_budget"),
+])
+def test_chunk_graphs_bookkeeping(keys, pixels, size, want, captured):
+    assert _sights(list(keys), pixels, size) == (want, captured)
+
+
+def test_a_graph_gets_the_chunks_frames():
+    graphs = extractor.ChunkGraphs(lambda key: lambda prev, nxt: (key, prev, nxt))
+    for _ in range(2):
+        got = graphs.sums("k", 72 * 129, ["p0", "p1"], ["n0", "n1"])
+    assert got == ("k", ["p0", "p1"], ["n0", "n1"])
+
+
+def test_device_cache_hands_its_tables_to_a_holder():
+    """`kernels.device_cache` caches as `lru_cache` does, and while
+    `hold_device_tables` is open each result, hit or miss, also goes
+    into its list: a captured graph keeps its tables past the cache."""
+    from optical_flow_tpu_torch import kernels
+    from optical_flow_tpu_torch.kernels import blur_solve, gauss, gauss_resize, resample
+
+    made = []
+
+    @kernels.device_cache(2)
+    def table(n):
+        made.append(n)
+        return [n]
+
+    first = table(1)
+    with kernels.hold_device_tables() as held:
+        assert table(1) is first and table(2) == [2]
+    assert table(3) == [3] and made == [1, 2, 3]
+    assert held == [[1], [2]] and held[0] is first
+    table.cache_clear()
+    assert table.cache_info().currsize == 0 and held[0] is first
+    # the wrappers' device tables are cached so
+    cpu = torch.device("cpu")
+    calls = [(gauss_resize._tables, (72, 129, 36, 65, cpu)),
+             (resample._table, ("bilinear", 36, 72, cpu)),
+             (resample._row_block_table, (36, 72, 0, 8, 0, cpu)),
+             (blur_solve.window_taps, (15, True, cpu)), (gauss._taps, ((0.25, 0.5), cpu)),
+             (resize.coeff_tensors, (36, 72, cpu)), (resize._u8_coeff_tensors, (36, 72, cpu)),
+             (resize._area_tensors, (72, 36, cpu))]
+    with kernels.hold_device_tables() as held:
+        got = [cached(*args) for cached, args in calls]
+    assert len(held) == len(calls) and all(h is g for h, g in zip(held, got))
 
 
 def test_extract_frames_stops_at_a_failed_read():
