@@ -31,7 +31,9 @@ and holds K5a -> K5b equal to K1 to the bit at every level, with the box
 window and, per iterate step on the pyramid's own flow, with the
 Gaussian one; both are timed (`ab_K1_vs_K5a_K5b_*`), as are K7 x 3
 against K2 + K1 x 3 per level on the pyramid's own flow at 1080p B=16
-and 72x129 B=128 (`ab_K7_vs_K2_K1`).  Then it drives the
+and 72x129 B=128 (`ab_K7_vs_K2_K1`); the K1 line's occupancy covers
+both instantiations, the run-time one and the one with winsize 15 built
+in.  Then it drives the
 extractor's path, `magnitude_sums` / `calc_flow_batched`, at 1080x1920
 (with FUSE_POLYEXP off and on: `e2e_fused_poly_1080p`, every level on
 K7) and at the extractor's 72x129, the extractor's device loop
@@ -531,17 +533,21 @@ def ptxas_report(name: str) -> list:
 
 def occupancy_k1(winsize: int, dev) -> dict:
     """K1's dynamic shared memory per block and resident blocks per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), box and Gaussian."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), box and Gaussian,
+    of the run-time instantiation and, where the window is the one built
+    in (`k1_fixed`), of the fixed one ("box_fixed", "gaussian_fixed")."""
     import ctypes
     from optical_flow_tpu_torch.kernels import _build
+    from optical_flow_tpu_torch.kernels.update_gather import k1_fixed
     f = _build.library("update_blur").oft_update_blur_occupancy
     out = {}
-    for gauss in (0, 1):
-        blocks, smem = ctypes.c_int(), ctypes.c_int()
-        require(f(winsize // 2, gauss, dev.index, ctypes.byref(blocks),
-                  ctypes.byref(smem)) == 0, "K1 occupancy query")
-        out["gaussian" if gauss else "box"] = {"smem_bytes": smem.value,
-                                               "blocks_per_sm": blocks.value}
+    for fixed in (0, 1) if k1_fixed(winsize) else (0,):
+        for gauss in (0, 1):
+            blocks, smem = ctypes.c_int(), ctypes.c_int()
+            require(f(winsize // 2, gauss, fixed, dev.index, ctypes.byref(blocks),
+                      ctypes.byref(smem)) == 0, "K1 occupancy query")
+            key = ("gaussian" if gauss else "box") + ("_fixed" if fixed else "")
+            out[key] = {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
     return out
 
 
@@ -1198,7 +1204,9 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
               batch: int = BATCH, shift=SHIFT, fused_poly: bool = False):
     """The extractor's device step on `batch` copies of the texture pair
     (shift (dy, dx), true flow (-dx, -dy)): launch counts (and K1's by
-    level width), kernel path vs plain path, interior EPE, the JAX golden
+    level width; every K1 launch of the instantiation with the window
+    built in where `k1_fixed`, none elsewhere), kernel path vs plain
+    path, interior EPE, the JAX golden
     entry `golden_key` where there is one, and pairs/s of both paths.
     seeded: flags 4 from seed_flow(batch, h, w), through calc_flow_batched
     (magnitude_sums takes no seed); only the first pair has the golden
@@ -1208,9 +1216,10 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
     pairs/s stands in for the plain path's.  The first path that
     launches a kernel gives its count to stats."""
     import torch
-    from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, reset_launches
+    from optical_flow_tpu_torch.kernels import (FIXED_WINDOW, LAUNCHES, fused_iterate,
+                                                reset_launches)
     from optical_flow_tpu_torch.kernels.gauss_resize import k3_fits
-    from optical_flow_tpu_torch.kernels.update_gather import k1_fits
+    from optical_flow_tpu_torch.kernels.update_gather import k1_fits, k1_fixed
     from optical_flow_tpu_torch.models.farneback.flow import (calc_flow,
                                                               calc_flow_batched)
     from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
@@ -1259,17 +1268,21 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
         reset_launches()
         sums = sums_of(False)
         torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
+        launches, fixed = dict(LAUNCHES), FIXED_WINDOW["K1"]
     finally:
         fused_iterate.update_blur = update_blur
     for kid in path:
         require(launches[kid] > 0, f"{name}: kernel {kid} was not launched")
     require(launches == expected, f"{name}: launches {launches} != {expected}")
+    require(fixed == (launches["K1"] if k1_fixed(cfg.winsize) else 0),
+            f"{name}: {fixed} of {launches['K1']} K1 launches with the window built in")
     require(k1_widths == ({lv.width: cfg.iterations for lv in levels} if fused else {}),
             f"{name}: K1 launches by level width {k1_widths}")
     if stats is not None:
         for kid in path:
             stats[kid].setdefault("launches", launches[kid])
+        if "K1" in path:
+            stats["K1"].setdefault("fixed_window_launches", fixed)
 
     flow = calc_flow_batched(prev, nxt, cfg, seed)
     fields = {}
@@ -1294,6 +1307,7 @@ def e2e_phase(name: str, h: int, w: int, cfg, dev, golden, power, stats=None,
 
     fields.update({"flags": cfg.flags, "winsize": cfg.winsize, "levels": cfg.levels,
               "fuse_polyexp": fused_poly, "launches": launches,
+              "k1_fixed_window_launches": fixed,
               "k1_launches_by_width": {str(k): v for k, v in sorted(k1_widths.items())},
               "vs_plain": {"share_within_tol": share, "mean_abs_diff": mean_d,
                            "max_abs_diff": float(d.max())}})
@@ -2013,6 +2027,8 @@ def main(argv: list[str]) -> int:
                         "ms": st["ms"], "plain_ms": st["plain_ms"],
                         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
                         "library_ms": st["library_ms"]})
+        if kid == "K1":
+            kernels[-1]["fixed_window_launches"] = st["fixed_window_launches"]
     print(power)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,16 @@ __device__ __forceinline__ bool fetch_target(int y, int x, float dx, float dy,
          fy >= 0.0f && fy <= static_cast<float>(H - 1);
 }
 
+// Whether pixel (y, x) lies on the 5-px border rows or columns of an H x
+// W frame, the only pixels whose border weight is not 1.
+__device__ __forceinline__ bool on_border(int y, int x, int H, int W) {
+  return y < 5 || y >= H - 5 || x < 5 || x >= W - 5;
+}
+
 // M at pixel (y, x) from R0 there (a), R1 at the fetch target (d) and the
-// flow (dx, dy).
+// flow (dx, dy).  BORDER_ONLY weighs only the pixels on_border: elsewhere
+// the weight is 1.0f and r * 1.0f == r, so skipping it changes no bit.
+template <bool BORDER_ONLY = false>
 __device__ __forceinline__ void assemble(const float* a, const float* d,
                                          float dx, float dy, bool inside,
                                          int y, int x, int H, int W, float* m) {
@@ -58,12 +66,14 @@ __device__ __forceinline__ void assemble(const float* a, const float* d,
   float r6 = inside ? (a[4] + d[4]) * 0.25f : a[4] * 0.5f;
   r2 = (a[0] - r2) * 0.5f + (r4 * dy + r6 * dx);
   r3 = (a[1] - r3) * 0.5f + (r6 * dy + r5 * dx);
-  const float sc = border_weight(y, H) * border_weight(x, W);
-  r2 = r2 * sc;
-  r3 = r3 * sc;
-  r4 = r4 * sc;
-  r5 = r5 * sc;
-  r6 = r6 * sc;
+  if (!BORDER_ONLY || on_border(y, x, H, W)) {
+    const float sc = border_weight(y, H) * border_weight(x, W);
+    r2 = r2 * sc;
+    r3 = r3 * sc;
+    r4 = r4 * sc;
+    r5 = r5 * sc;
+    r6 = r6 * sc;
+  }
   m[0] = r4 * r4 + r6 * r6;  // G11
   m[1] = (r4 + r5) * r6;     // G12
   m[2] = r5 * r5 + r6 * r6;  // G22

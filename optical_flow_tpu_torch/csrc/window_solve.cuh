@@ -43,11 +43,16 @@ __device__ __forceinline__ void solve_store(const float* s, float scale,
 // or one).  load(q, v) gives the C channels of the q-th value, q = 0 ..
 // 2m + K - 1, called once each in that order.  Sum j starts at q = j and ends at q = j + 2m: the first K
 // and the last K - 1 values are peeled (unrolled), so that the loop
-// between them adds to all K sums with no test.
-template <bool GAUSS, int K, int C, typename Load>
-__device__ __forceinline__ void window_sums(Load load, const float* t, int m,
+// between them adds to all K sums with no test.  t[i] reads tap i: a
+// pointer into shared memory, or a kernel parameter's array.  N > 0 fixes
+// the window at N = 2m + 1 taps at compile time: every step is unrolled,
+// so load and t see constant q, and the taps' shifts through tw[] are
+// register renames; N = 0 reads m at run time.
+template <bool GAUSS, int K, int N = 0, int C, typename Load, typename Taps>
+__device__ __forceinline__ void window_sums(Load load, Taps t, int m,
                                             float (&a)[C][K]) {
-  const int n = 2 * m + 1;
+  static_assert(N == 0 || N % 2 == 1, "a window has 2m + 1 taps");
+  const int n = N > 0 ? N : 2 * m + 1;
   float v[C];
   float tw[K];   // tw[j] = t[q - j], the tap of value q in sum j
   if (n < K) {   // windows shorter than K: every step tests its sums
@@ -96,7 +101,7 @@ __device__ __forceinline__ void window_sums(Load load, const float* t, int m,
         a[k][j] = j == q ? tv : a[k][j] + tv;
       }
   }
-  for (int q = K; q < n; ++q) {          // all K sums go on
+  const auto step = [&](int q) {         // all K sums go on
     load(q, v);
     if (GAUSS) {
 #pragma unroll
@@ -107,6 +112,14 @@ __device__ __forceinline__ void window_sums(Load load, const float* t, int m,
     for (int j = 0; j < K; ++j)
 #pragma unroll
       for (int k = 0; k < C; ++k) a[k][j] = a[k][j] + term<GAUSS>(tw[j], v[k]);
+  };
+  // the run-time loop is left to nvcc's own unrolling: any count given
+  // to it (1, 2, 4 or 8) changes the code of K5b and of K1's run-time form
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int q = K; q < N; ++q) step(q);
+  } else {
+    for (int q = K; q < n; ++q) step(q);
   }
 #pragma unroll
   for (int e = 1; e < K; ++e) {          // sums j < e have ended

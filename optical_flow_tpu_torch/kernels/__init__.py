@@ -23,7 +23,11 @@ package's Pallas kernels; X1 and X2 the glue it leaves to XLA's fusions.
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; nothing falls back from one to the other.
 `LAUNCHES` counts kernel launches (never plain-version calls), so that a
-run can show that the main path went through the kernels.  A table the
+run can show that the main path went through the kernels;
+`FIXED_WINDOW` counts those of them that ran an instantiation with the
+window built in (K1's at winsize 15), kept apart so that `LAUNCHES`
+sums to launches.  `launch_counts` and `add_launches` take both at once
+(a captured graph's launches, restored and replayed).  A table the
 wrappers make once and keep on the device for their launches to read is
 cached by `device_cache`, which hands it also to an open
 `hold_device_tables` (a captured CUDA graph's launches read it at every
@@ -38,6 +42,8 @@ import torch
 
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5a": 0, "K5b": 0, "K6": 0,
             "K7": 0, "X1": 0, "X2": 0}
+FIXED_WINDOW = {"K1": 0}
+_COUNTERS = {"launches": LAUNCHES, "fixed_window": FIXED_WINDOW}
 
 # Dynamic shared memory one block may use on Hopper (sm_90).
 MAX_SMEM = 227 * 1024
@@ -83,8 +89,22 @@ def hold_device_tables():
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counter in _COUNTERS.values():
+        for k in counter:
+            counter[k] = 0
+
+
+def launch_counts() -> dict:
+    """Both counters as they stand, {(counter, kernel): launches} with
+    counter "launches" (`LAUNCHES`) or "fixed_window" (`FIXED_WINDOW`)."""
+    return {(name, k): n for name, counter in _COUNTERS.items()
+            for k, n in counter.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add `counts`, keyed as `launch_counts` keys them, to the counters."""
+    for (name, k), n in counts.items():
+        _COUNTERS[name][k] += n
 
 
 def on_cuda(t) -> bool:

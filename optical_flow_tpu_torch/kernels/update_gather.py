@@ -25,8 +25,19 @@ register-blocked four outputs a thread, each still in tap order.  That
 is 1.5 M evaluations per output pixel at winsize 15 with 256-row blocks
 (the former 32x32 tile: 2.1), and a third of the former shared-memory
 reads.  What is left above the traffic floor is building M: its loads,
-three pixels a thread in flight, at three blocks an SM (PERF.md).  The shared memory bounds the window; the
-route keeps K1 to winsize <= 61: `k1_fits`.
+three pixels a thread in flight, at three blocks an SM.  Measured at the
+1080p levels (PERF.md, K1), the build alone takes 85 % of the run-time
+kernel's step with the box window and 74 % with the Gaussian one, and
+the sums add the time their instructions do not hide under the build's
+loads.  At winsize 15 (`k1_fixed`: winsize // 2 == 7, the reference's
+window) the wrapper launches the instantiation with the window built in:
+both sums unrolled whole, the Gaussian taps passed as kernel parameters,
+the build's strides constant and its border weights computed only on the
+frame's 5-px border.  It cuts the sums alone by a quarter and the step
+by 12 % (box) and 16 % (Gaussian), and its flow equals the run-time
+kernel's, and K5a -> K5b's, to the bit; `kernels.FIXED_WINDOW["K1"]`
+counts its launches.  The shared memory bounds the window; the route
+keeps K1 to winsize <= 61: `k1_fits`.
 
 K5a replaces `update_matrices_pallas_batched_stats` (`:1851`, with its
 column-chunked build `:1714` for wide frames and the store-layout entry
@@ -56,8 +67,8 @@ import functools
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.kernels import (LAUNCHES, MAX_SMEM, _build, check,
-                                            on_cuda, output, raise_on_error,
+from optical_flow_tpu_torch.kernels import (FIXED_WINDOW, LAUNCHES, MAX_SMEM, _build,
+                                            check, on_cuda, output, raise_on_error,
                                             sm_count)
 from optical_flow_tpu_torch.kernels.blur_solve import window_taps
 from optical_flow_tpu_torch.kernels.polyexp import expansion_consts
@@ -68,6 +79,7 @@ _K7_TILE_W = 64     # its output columns per block by default (kDefaultTile)
 _K7_TWO_BLOCKS = 228 * 1024 // 2 - 1024   # a block's share at two an SM
 _STRIP = 32         # K1's strip width and rows built per pass (SW, G)
 _K1_MAX_WINSIZE = 61
+_K1_FIXED_M = 7     # the half-width K1 has built in (kFixedM): winsize 15
 
 
 def k1_smem(winsize: int) -> int:
@@ -134,9 +146,23 @@ def k7_fits(winsize: int, poly_n: int) -> bool:
 def _k1():
     f = _build.library("update_blur").oft_update_blur
     p, i = ctypes.c_void_p, ctypes.c_int
-    f.argtypes = [p, p, p, p, i, i, i, i, p, ctypes.c_float, i, i, p]
+    f.argtypes = [p, p, p, p, i, i, i, i, p, p, ctypes.c_float, i, i, i, p]
     f.restype = i
     return f
+
+
+@functools.lru_cache(maxsize=None)
+def _host_taps(winsize: int) -> np.ndarray:
+    """The Gaussian window's taps in host memory, the values
+    `window_taps` puts on the device: the fixed instantiation takes them
+    as a kernel parameter."""
+    return np.ascontiguousarray(core.gaussian_window_kernel(winsize), np.float32)
+
+
+def k1_fixed(winsize: int) -> bool:
+    """Whether K1 runs the instantiation with the window's half-width
+    built in: winsize // 2 == 7 (winsize 15, the reference's)."""
+    return winsize // 2 == _K1_FIXED_M
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,7 +212,8 @@ def update_blur(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     """K1, one iterate step: R0, R1 (B, 5, H, W), flow (B, 2, H, W) f32 ->
     new flow (B, 2, H, W) f32, with the box window or, with `gaussian`,
     the Gaussian one (winsize >= 2); written to `out` when given (CUDA
-    only; it must not be `flow`, whose neighbours the step still reads)."""
+    only; it must not be `flow`, whose neighbours the step still reads).
+    Where `k1_fixed(winsize)`, the instantiation with the window built in."""
     if not on_cuda(flow):
         if out is not None:
             raise ValueError("out= is for CUDA tensors")
@@ -201,12 +228,16 @@ def update_blur(R0: torch.Tensor, R1: torch.Tensor, flow: torch.Tensor,
     out = output(out, flow.shape, dev, flow)
     if flow.numel() == 0:
         return out
+    fixed = k1_fixed(winsize)
+    host_taps = _host_taps(winsize) if fixed and gaussian else None
     rc = _k1()(R0.data_ptr(), R1.data_ptr(), flow.data_ptr(), out.data_ptr(),
                B, h, w, winsize // 2, None if taps is None else taps.data_ptr(),
-               scale, _rows_per_block(B, h, w, dev), dev.index,
+               None if host_taps is None else host_taps.ctypes.data,
+               scale, _rows_per_block(B, h, w, dev), int(fixed), dev.index,
                torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, "update_blur")
     LAUNCHES["K1"] += 1
+    FIXED_WINDOW["K1"] += fixed
     return out
 
 

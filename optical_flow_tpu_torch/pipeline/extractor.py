@@ -47,7 +47,8 @@ import torch
 from optical_flow_tpu_torch.io.sidecar import (DoneSentinel, ShotProgress,
                                                write_mag_to_csv)
 from optical_flow_tpu_torch.io.video import VFRStreamError, VideoReader
-from optical_flow_tpu_torch.kernels import LAUNCHES, fused_iterate, hold_device_tables
+from optical_flow_tpu_torch.kernels import (add_launches, fused_iterate, hold_device_tables,
+                                            launch_counts)
 from optical_flow_tpu_torch.kernels.magnitude_sum import magnitude_sum
 from optical_flow_tpu_torch.models.farneback.flow import calc_flow_batched
 from optical_flow_tpu_torch.ops import polar
@@ -206,35 +207,35 @@ class _ChunkGraph:
     the batch that makes every device table its launches read (their
     caches may have evicted them since the key's first sight); the graph
     keeps those tables (`kernels.hold_device_tables`), and neither run
-    counts in `kernels.LAUNCHES`.  A call stacks the chunk's frames into
-    the batch, replays, adds the captured launches to `LAUNCHES`, and
-    returns a copy of the sums made on the stream after the replay: the
-    graph's own output is rewritten by the next replay while these sums
-    are still in flight."""
+    counts in the launch counters (`kernels.launch_counts`).  A call
+    stacks the chunk's frames into the batch, replays, adds the captured
+    launches to the counters, and returns a copy of the sums made on the
+    stream after the replay: the graph's own output is rewritten by the
+    next replay while these sums are still in flight."""
 
     def __init__(self, key):
         device, b, h, w, dtype, config, _fused = key
         self.batch = torch.zeros((2 * b, h, w), dtype=dtype, device=device)
         self.graph = torch.cuda.CUDAGraph()
-        before = dict(LAUNCHES)
+        before = launch_counts()
         _flow_and_sums(self.batch[:b], self.batch[b:], config, device=device, plain=False)
-        warm = dict(LAUNCHES)
+        warm = launch_counts()
         # thread-local: other threads (another video's loop) may use the
         # card while this one captures
         with hold_device_tables() as self.tables, torch.cuda.device(device), \
                 torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = _flow_and_sums(self.batch[:b], self.batch[b:], config,
                                       device=device, plain=False)[1]
-        self.launches = {k: n - warm[k] for k, n in LAUNCHES.items() if n != warm[k]}
-        LAUNCHES.update(before)
+        now = launch_counts()
+        self.launches = {k: n - warm[k] for k, n in now.items() if n != warm[k]}
+        add_launches({k: before[k] - n for k, n in now.items()})
 
     def __call__(self, prev, nxt) -> torch.Tensor:
         b = len(prev)
         torch.stack(prev, out=self.batch[:b])
         torch.stack(nxt, out=self.batch[b:])
         self.graph.replay()
-        for k, n in self.launches.items():
-            LAUNCHES[k] += n
+        add_launches(self.launches)
         return self.out.clone()
 
 

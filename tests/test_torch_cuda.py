@@ -4,7 +4,9 @@ odd dims, float32 input, other window and expansion sizes, the wrappers'
 input checks, the main path against the plain path on the CPU, the
 visualizer's chained pyramid and K4 colorization, the unfused iterate
 (K5a -> K5b) with the box and the Gaussian window, K1 with the Gaussian
-window, the box window beyond K1's tile, the seeded entry, K6 (the
+window, K1's instantiation with winsize 15 built in against K5a -> K5b
+to the bit, with its launch counter, the box
+window beyond K1's tile, the seeded entry, K6 (the
 full-resolution Gaussian) at any tap count, the configs whose levels
 K3 does not take (levels 4 and 5, pyr_scale 0.25) or whose expansion is
 wider than cv2's (poly_n 11), K7 (the step with the expansion derived
@@ -1031,7 +1033,8 @@ def _clip_moving(h, w, n_frames, speed):
 
 
 def _extract_counted(seq, todo, chunk, dev):
-    """extract_frames on the card: (sums, its launches, its counters)."""
+    """extract_frames on the card: (sums, its launches as
+    `kernels.launch_counts` gives them, its counters)."""
     from optical_flow_tpu_torch.pipeline import extractor
     from optical_flow_tpu_torch.utils.config import ExtractorConfig
     from optical_flow_tpu_torch.utils.metrics import PipelineMetrics
@@ -1041,7 +1044,7 @@ def _extract_counted(seq, todo, chunk, dev):
     got = extractor.extract_frames(seq, todo, ExtractorConfig(), chunk_size=chunk,
                                    device=dev, metrics=m)
     torch.cuda.synchronize()
-    return got, dict(kernels.LAUNCHES), m.counters
+    return got, kernels.launch_counts(), m.counters
 
 
 def test_replayed_chunks_equal_the_eager_dispatch(dev, fresh_graphs, monkeypatch):
@@ -1052,8 +1055,9 @@ def test_replayed_chunks_equal_the_eager_dispatch(dev, fresh_graphs, monkeypatch
     runs eagerly, the next captures, the rest replay, its last chunk of 15
     stays eager.  Every sum equals the eager dispatch's to the bit, and
     `kernels.LAUNCHES` counts the kernels the replays ran as the eager
-    calls count theirs.  Sums handed back from the graph's own output,
-    not copied, would carry the next replay's."""
+    calls count theirs, and `kernels.FIXED_WINDOW` every K1 launch of
+    them (winsize 15).  Sums handed back from the graph's own output, not
+    copied, would carry the next replay's."""
     from optical_flow_tpu_torch.pipeline import extractor
 
     runs = [(_clip_moving(72, 129, 250, speed), 128) for speed in (1, 2, 3)]
@@ -1067,6 +1071,7 @@ def test_replayed_chunks_equal_the_eager_dispatch(dev, fresh_graphs, monkeypatch
         got, got_launches, counters = _extract_counted(seq, todo, chunk, dev)
         assert got == want and sorted(got) == list(range(len(todo)))
         assert got_launches == launches
+        assert launches["fixed_window", "K1"] == launches["launches", "K1"] > 0
         assert counters["dispatches"] == -(-len(todo) // chunk)
         replays.append(counters["graph_replays"])
     assert len(runs[3][0][1]) == 143            # 8 chunks of 16 and one of 15
@@ -1105,7 +1110,7 @@ def test_a_1080p_clip_is_never_graphed(dev, fresh_graphs):
     for _ in range(3):
         _, launches, counters = _extract_counted(seq, todo, 80, dev)
         assert counters["dispatches"] == 1 and counters["graph_replays"] == 0
-        assert launches["K1"] == 12
+        assert launches["launches", "K1"] == launches["fixed_window", "K1"] == 12
     assert not fresh_graphs._graphs and not fresh_graphs._seen
 
 
@@ -1226,6 +1231,43 @@ def test_update_blur_width_7680(dev, h, w, B, gaussian):
     torch.cuda.synchronize()
     assert torch.equal(got, unfused)
     _close(got, core.update_step(R0, R1, flow, 15, gaussian), STEP_TOL)
+
+
+FIXED_SHAPES = [(5, 7), (37, 53), (72, 129), (1080, 1920), (540, 960), (270, 480),
+                (135, 240), (40, 7700)]
+
+
+@pytest.mark.parametrize("gaussian", [False, True])
+@pytest.mark.parametrize("h,w", FIXED_SHAPES)
+def test_update_blur_fixed_window_equals_unfused(dev, h, w, gaussian):
+    """K1's instantiation with winsize 15 built in, at B = 1, a +-6 px flow,
+    the small shapes, the four 1080p levels and width 7700: equal to the
+    bit to K5a -> K5b, and counted once in `kernels.FIXED_WINDOW` as in
+    `LAUNCHES`, whose keys stay the kernels'."""
+    R0, R1, flow = _wide_operands(dev, 1, h, w, 6.0)
+    kernels.reset_launches()
+    got = update_blur(R0, R1, flow, 15, gaussian)
+    unfused = blur_solve(update_matrices(R0, R1, flow), 15, gaussian)
+    torch.cuda.synchronize()
+    assert torch.equal(got, unfused), float((got - unfused).abs().max())
+    assert kernels.FIXED_WINDOW == {"K1": 1}
+    assert kernels.LAUNCHES["K1"] == 1
+    assert sorted(kernels.LAUNCHES) == ["K1", "K2", "K3", "K4", "K5a", "K5b", "K6",
+                                        "K7", "X1", "X2"]
+
+
+@pytest.mark.parametrize("winsize,fixed", [(15, 3), (14, 3), (9, 0), (21, 0), (61, 0)])
+@pytest.mark.parametrize("gaussian", [False, True])
+def test_k1_fixed_window_counts_its_launches(dev, winsize, fixed, gaussian):
+    """A 3-step level counts its K1 launches in `LAUNCHES` at any window,
+    and in `kernels.FIXED_WINDOW` only where the window is built in
+    (winsize // 2 == 7)."""
+    R0, R1, flow = _step_operands(dev, 37, 53)
+    kernels.reset_launches()
+    update_flow(R0, R1, flow, winsize, 3, gaussian)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["K1"] == 3
+    assert kernels.FIXED_WINDOW == {"K1": fixed}
 
 
 def _level_cases():
